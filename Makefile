@@ -2,36 +2,34 @@
 # graphs; Makefile:1-87) for a Python/JAX framework.
 PY ?= python
 
-.PHONY: all native test test-all test-tpu bench sweep graphs multihost golden clean
+.PHONY: all native test test-all test-gpu bench sweep graphs multihost golden clean
 
 all: native
 
 native:
 	$(MAKE) -C native
 
-# Fast correctness gate (~5 min on 4 CPUs): everything except the
-# slow tier (Mosaic AOT legality, fuzz sweeps, probe surfaces).
+# Fast correctness gate on the CPU: everything except the slow tier
+# (the fuzz sweeps).
 test:
 	$(PY) -m pytest tests/ -q -n 4 --dist loadgroup -m "not slow"
 
-# Everything, including the Mosaic AOT kernel-legality gate (one
-# hermetic subprocess over the whole inventory) and the fuzz sweeps
-# (~10 min; run after touching ops/*.py kernels).
+# Everything, including the fuzz sweeps (run after touching ops/*.py).
 test-all:
 	$(PY) -m pytest tests/ -q -n 4 --dist loadgroup
 
-# Run the suite against the real TPU instead of the virtual CPU mesh.
-test-tpu:
-	STEREO_TEST_TPU=1 $(PY) -m pytest tests/ -q
+# The tests that need the card (the gpu marker), on a machine with one.
+test-gpu:
+	$(PY) -m pytest tests/ -q -m gpu
 
 bench:
 	$(PY) bench.py
 
 sweep:
-	$(PY) -m stereomatching_tpu.bench
+	$(PY) -m stereomatching.bench
 
 graphs:
-	$(PY) -m stereomatching_tpu.bench --graphs report
+	$(PY) -m stereomatching.bench --graphs report
 
 # Multi-process (multi-host emulation) correctness smoke.
 multihost:

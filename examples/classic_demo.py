@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""End-to-end classic pipeline demo on the reference fixtures.
+"""End-to-end classic pipeline demo.
 
-Loads a stereo pair, runs the jitted pipeline (both boundary modes),
-writes the contour map and elevation web as PPM images, and prints the
-reference-compatible timing line.
+Loads a stereo pair (or, without arguments, makes a synthetic 240x135
+blob scene from a seed), runs the jitted pipeline in both boundary
+modes, and writes the contour map and elevation web as PPM images.
 
     python examples/classic_demo.py [left.png right.png] [--outdir out]
 """
@@ -15,28 +15,33 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-FIXTURE = "/root/reference/test/imgs/1-240x135"
-
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("left", nargs="?", default=f"{FIXTURE}/a.png")
-    p.add_argument("right", nargs="?", default=f"{FIXTURE}/b.png")
+    p.add_argument("left", nargs="?", default=None)
+    p.add_argument("right", nargs="?", default=None)
     p.add_argument("--outdir", default="demo_out")
     args = p.parse_args()
 
     import numpy as np
 
-    from stereomatching_tpu import BoundaryMode, StereoParams
-    from stereomatching_tpu.serving import Matcher
-    from stereomatching_tpu.utils.imageio import (
+    from stereomatching import BoundaryMode, StereoParams
+    from stereomatching.serving import Matcher
+    from stereomatching.utils.imageio import (
         artifact_ppm_type,
         read_png_gray,
         write_ppm,
     )
 
-    left = read_png_gray(args.left)
-    right = read_png_gray(args.right)
+    if (args.left is None) != (args.right is None):
+        p.error("give both images or neither")
+    if args.left is None:
+        from stereomatching.utils.synthetic import blob_scene
+
+        left, right, _ = blob_scene(135, 240, seed=0)
+    else:
+        left = read_png_gray(args.left)
+        right = read_png_gray(args.right)
     print(f"pair: {left.shape[1]}x{left.shape[0]}")
 
     os.makedirs(args.outdir, exist_ok=True)

@@ -21,10 +21,10 @@ def main() -> int:
 
     import numpy as np
 
-    from stereomatching_tpu import ModernParams
-    from stereomatching_tpu.serving import ModernMatcher
-    from stereomatching_tpu.utils.metrics import disparity_report
-    from stereomatching_tpu.utils.synthetic import blob_scene
+    from stereomatching import ModernParams
+    from stereomatching.serving import ModernMatcher
+    from stereomatching.utils.metrics import disparity_report
+    from stereomatching.utils.synthetic import blob_scene
 
     left, right, gt = blob_scene(
         h=270, w=480, seed=0, max_disparity=args.disparities // 2

@@ -1,10 +1,10 @@
-// Native image I/O for stereomatching_tpu.
+// Native image I/O for stereomatching.
 //
-// The TPU-native counterpart of the reference's native I/O layer
+// This framework's counterpart of the reference's native I/O layer
 // (vendored stb_image decoder + src/image.c PPM writer): grayscale PNG
 // decode/encode and the byte-exact ASCII PPM-P3 artifact renderer
 // (reference write_image, src/image.c:71-88).  The pure-Python
-// implementations in stereomatching_tpu/utils/imageio.py are the
+// implementations in stereomatching/utils/imageio.py are the
 // executable spec; this library must produce identical bytes and is
 // loaded via ctypes when built (make -C native).
 //

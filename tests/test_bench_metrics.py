@@ -7,14 +7,14 @@ import os
 import numpy as np
 import pytest
 
-from stereomatching_tpu.bench.harness import pixel_passes, size_sweep, time_jitted
-from stereomatching_tpu.config import ModernParams, StereoParams
-from stereomatching_tpu.utils.artifacts import (
+from stereomatching.bench.harness import pixel_passes, size_sweep, time_jitted
+from stereomatching.config import ModernParams, StereoParams
+from stereomatching.utils.artifacts import (
     compare_artifacts,
     load_artifacts,
     save_artifacts,
 )
-from stereomatching_tpu.utils.metrics import (
+from stereomatching.utils.metrics import (
     bad_pixel_rate,
     disparity_report,
     end_point_error,
@@ -41,7 +41,7 @@ def test_time_jitted_and_sweep_smoke():
 
 
 def test_bench_cli_runs(capsys):
-    from stereomatching_tpu.bench.__main__ import main
+    from stereomatching.bench.__main__ import main
 
     rc = main([
         "--sizes", "32x48", "--phases-size", "32x48", "--iters", "1",
@@ -58,12 +58,12 @@ def test_bench_cli_runs(capsys):
 
 def test_graphs_written(tmp_path):
     pytest.importorskip("matplotlib")
-    from stereomatching_tpu.bench.graphs import (
+    from stereomatching.bench.graphs import (
         speedup_graph,
         throughput_graph,
         times_graph,
     )
-    from stereomatching_tpu.bench.harness import BenchResult
+    from stereomatching.bench.harness import BenchResult
 
     rs = [
         BenchResult("48x32", 0.01, 0.009, 0.001, 3, pixels=48 * 32 * 575),
@@ -93,7 +93,7 @@ def test_metrics():
 def test_modern_quality_on_known_shift():
     """End-to-end quality gate: on a pure horizontal shift the modern
     pipeline's bad-pixel rate (1 px) must be tiny on valid pixels."""
-    from stereomatching_tpu.models.modern import build_modern_pipeline
+    from stereomatching.models.modern import build_modern_pipeline
 
     rng = np.random.default_rng(0)
     base = rng.integers(0, 256, size=(48, 96)).astype(np.int32)
@@ -131,32 +131,44 @@ def test_compare_artifacts_tolerance():
     assert compare_artifacts(a, b, atol=1e-6) == []
 
 
-def test_ici_model_and_weak_scaling_prediction():
-    """The halo-exchange model (bench/roofline.ici_phase_model) must
-    reflect the sharded pipeline's structure: per-shard cost O(1) in
-    the shard count (ring neighbors only), the diffusion latency chain
-    as the dominant term, and a pre-registered efficiency >= 0.9 at
-    the production shard size (BASELINE.md's weak-scaling target)."""
-    from stereomatching_tpu.bench.roofline import (
-        ici_phase_model,
-        weak_scaling_prediction,
-    )
-    from stereomatching_tpu.config import StereoParams
+@pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3"])
+def test_peak_table_holds_published_h100_rates(kind):
+    from stereomatching.bench.roofline import peaks_for
 
-    params = StereoParams(num_shifts=64, edge_rule="exact")
-    ici = ici_phase_model(params, 256, 1024, batch=2)
-    assert set(ici) == {
-        "edges_halo", "boxfilter_halo", "diffusion_halo", "contour_reduce"
-    }
-    # times-1 sequential 1-row exchanges; tiny payloads -> latency-bound.
-    assert ici["diffusion_halo"]["exchanges"] == params.times - 1
-    assert ici["diffusion_halo"]["us"] == max(
-        m["us"] for m in ici.values()
-    )
+    p = peaks_for(kind)
+    assert p.hbm_bytes_per_s == 3.35e12
+    assert p.ops_per_s["bf16"] == 989e12 and p.ops_per_s["int8"] == 1979e12
+    assert p.ops_per_s["tf32"] == 495e12 and p.ops_per_s["fp32"] == 67e12
+    assert p.memory_bytes == 80e9 and "data sheet" in p.source
 
-    curve = weak_scaling_prediction(params, 256, 1024, batch=2)
-    assert curve[0]["shards"] == 1 and curve[0]["predicted_efficiency"] == 1.0
-    effs = {r["predicted_efficiency"] for r in curve if r["shards"] >= 2}
-    assert len(effs) == 1, "per-shard ICI cost must be flat in N"
-    (eff,) = effs
-    assert 0.9 <= eff < 1.0, eff
+
+@pytest.mark.parametrize("kind", ["NVIDIA H100 PCIe", "cpu", "NVIDIA A100-SXM4-80GB"])
+def test_peak_table_rejects_unknown_devices(kind):
+    from stereomatching.bench.roofline import peaks_for, roofline_share
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks_for(kind)
+    with pytest.raises(KeyError):
+        roofline_share(1.0, 1.0, kind)
+
+
+@pytest.mark.parametrize("seconds,nbytes,ops,op_type,share,bound", [
+    (1e-3, 3.35e9, 0.0, "fp32", 1.0, "memory"),
+    (2e-3, 3.35e9, 0.0, "fp32", 0.5, "memory"),
+    (1e-3, 0.0, 989e9, "bf16", 1.0, "compute"),
+    (4e-3, 3.35e9, 989e9 * 2, "bf16", 0.5, "compute"),
+    (1e-3, 3.35e9, 1.0, "int8", 1.0, "memory"),
+])
+def test_roofline_share(seconds, nbytes, ops, op_type, share, bound):
+    from stereomatching.bench.roofline import roofline_share
+
+    got, got_bound = roofline_share(seconds, nbytes, "NVIDIA H100 80GB HBM3",
+                                    ops=ops, op_type=op_type)
+    assert got == pytest.approx(share) and got_bound == bound
+
+
+def test_roofline_share_rejects_nonpositive_time():
+    from stereomatching.bench.roofline import roofline_share
+
+    with pytest.raises(ValueError):
+        roofline_share(0.0, 1.0, "NVIDIA H100 80GB HBM3")

@@ -6,10 +6,10 @@ import re
 import numpy as np
 import pytest
 
-from stereomatching_tpu import cli
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.utils.imageio import read_ppm, to_brightness, write_png_gray
+from stereomatching import cli
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.utils.imageio import read_ppm, to_brightness, write_png_gray
 from tests.util import synthetic_pair
 
 TIMING_RE = re.compile(
@@ -143,30 +143,28 @@ def test_modern_pipeline_cli(pair_paths, tmp_path):
     assert os.path.exists(os.path.join(outdir, "valid.ppm"))
 
 
-def test_modern_cli_pallas_tier(pair_paths, tmp_path):
+def test_modern_cli_pallas_tier(pair_paths, capsys):
+    """The modern pipeline has no kernel tier: --tier pallas is an
+    error, not a silent fallback."""
     a, b, _, _ = pair_paths
-    out_p = str(tmp_path / "modern_pallas")
-    out_x = str(tmp_path / "modern_xla")
     base = [a, b, "--pipeline", "modern", "--shifts", "8", "0.15", "5"]
-    assert cli.main(base + ["--tier", "pallas", "--outdir", out_p]) == 0
-    assert cli.main(base + ["--tier", "jax", "--outdir", out_x]) == 0
+    assert cli.main(base + ["--tier", "pallas", "--no-writes"]) == 1
+    assert "not available" in capsys.readouterr().err
+
+
+def test_modern_cli_pallas_tier_unsupported(pair_paths, tmp_path):
+    """Multi-scale fusion runs on the jax tier and writes its outputs."""
+    a, b, _, _ = pair_paths
+    outdir = str(tmp_path / "ms")
+    rc = cli.main(
+        [a, b, "--pipeline", "modern", "--tier", "jax",
+         "--scales", "2", "--shifts", "8", "--outdir", outdir]
+    )
+    assert rc == 0
     import numpy as np
 
-    with np.load(os.path.join(out_p, "disparity.npz")) as zp, np.load(
-        os.path.join(out_x, "disparity.npz")
-    ) as zx:
-        np.testing.assert_array_equal(zp["disparity"], zx["disparity"])
-        np.testing.assert_array_equal(zp["valid"], zx["valid"])
-
-
-def test_modern_cli_pallas_tier_unsupported(pair_paths, capsys):
-    a, b, _, _ = pair_paths
-    rc = cli.main(
-        [a, b, "--pipeline", "modern", "--tier", "pallas",
-         "--scales", "2", "--no-writes"]
-    )
-    assert rc == 1
-    assert "XLA tier" in capsys.readouterr().err
+    with np.load(os.path.join(outdir, "disparity.npz")) as z:
+        assert z["disparity"].shape == z["valid"].shape
 
 
 def test_modern_cli_sharded_tier(pair_paths, tmp_path):

@@ -1,12 +1,12 @@
 """Ground-truth format tests: PFM and disparity-PNG codecs
-(stereomatching_tpu/data/formats.py) — round trips, cross-validation
+(stereomatching/data/formats.py) — round trips, cross-validation
 against an independent codec (Pillow, when installed), and the
 end-to-end quality gate on the synthetic scene."""
 
 import numpy as np
 import pytest
 
-from stereomatching_tpu.data.formats import (
+from stereomatching.data.formats import (
     read_disparity_png,
     read_ground_truth,
     read_pfm,
@@ -130,7 +130,7 @@ def test_read_ground_truth_dispatch(tmp_path):
 
 
 def test_metrics_mask_nan_ground_truth():
-    from stereomatching_tpu.utils.metrics import disparity_report
+    from stereomatching.utils.metrics import disparity_report
 
     gt = np.array([[1.0, np.nan], [3.0, 4.0]])
     pred = np.array([[1.0, 99.0], [3.0, 7.0]])
@@ -144,10 +144,10 @@ def test_quality_gate_on_synthetic_scene(tmp_path):
     """End-to-end quality regression: modern pipeline vs ground truth
     loaded through the dataset-format path (the BASELINE.md bad-pixel
     gate, reportable the moment a real dataset is mounted)."""
-    from stereomatching_tpu.models.modern import build_modern_pipeline
-    from stereomatching_tpu.config import ModernParams
-    from stereomatching_tpu.utils.metrics import disparity_report
-    from stereomatching_tpu.utils.synthetic import blob_scene
+    from stereomatching.models.modern import build_modern_pipeline
+    from stereomatching.config import ModernParams
+    from stereomatching.utils.metrics import disparity_report
+    from stereomatching.utils.synthetic import blob_scene
 
     left, right, gt = blob_scene(h=72, w=96, seed=0, max_disparity=12)
     path = str(tmp_path / "gt.pfm")
@@ -177,7 +177,7 @@ class TestPGMInput:
         return left
 
     def test_p5_roundtrip(self, tmp_path):
-        from stereomatching_tpu.utils.imageio import read_png_gray
+        from stereomatching.utils.imageio import read_png_gray
 
         img = self._img()
         p = tmp_path / "x.pgm"
@@ -188,7 +188,7 @@ class TestPGMInput:
         np.testing.assert_array_equal(read_png_gray(str(p)), img)
 
     def test_p2_roundtrip(self, tmp_path):
-        from stereomatching_tpu.utils.imageio import read_png_gray
+        from stereomatching.utils.imageio import read_png_gray
 
         img = self._img()
         body = "\n".join(
@@ -201,7 +201,7 @@ class TestPGMInput:
         np.testing.assert_array_equal(read_png_gray(str(p)), img)
 
     def test_16bit_rejected(self, tmp_path):
-        from stereomatching_tpu.utils.imageio import read_png_gray
+        from stereomatching.utils.imageio import read_png_gray
 
         p = tmp_path / "x.pgm"
         p.write_bytes(b"P5\n2 2\n65535\n" + b"\0" * 8)
@@ -211,7 +211,7 @@ class TestPGMInput:
     def test_cli_accepts_pgm_pair(self, tmp_path):
         from tests.util import synthetic_pair
 
-        from stereomatching_tpu import cli
+        from stereomatching import cli
 
         left, right = synthetic_pair(h=24, w=32, seed=9)
         paths = []

@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import ModernParams, StereoParams
-from stereomatching_tpu.data import BatchLoader, StereoPairDataset, discover_pairs
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.serving import Matcher, ModernMatcher
-from stereomatching_tpu.utils.imageio import to_brightness, write_png_gray
+from stereomatching.config import ModernParams, StereoParams
+from stereomatching.data import BatchLoader, StereoPairDataset, discover_pairs
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.serving import Matcher, ModernMatcher
+from stereomatching.utils.imageio import to_brightness, write_png_gray
 from tests.util import synthetic_pair
 
 
@@ -113,7 +113,7 @@ def test_matcher_sharded_tier():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs CPU mesh")
-    from stereomatching_tpu.parallel import make_mesh
+    from stereomatching.parallel import make_mesh
 
     params = StereoParams(square_width=9, times=4, lines=4, num_shifts=8,
                           edge_rule="exact")
@@ -147,22 +147,24 @@ def test_modern_matcher_rejects_brightness_floats():
 
 
 def test_modern_matcher_tiers_agree():
+    """The modern pipeline runs the xla (default) and sharded tiers; the
+    tiers without a kernel are rejected."""
     params = ModernParams(num_disparities=8, window=5)
     left, right = synthetic_pair(h=24, w=32, seed=6)
     xla = ModernMatcher(params, tier="xla")(left, right)
-    pal = ModernMatcher(params, tier="pallas")(left, right)
-    auto = ModernMatcher(params, tier="auto")(left, right)
-    np.testing.assert_array_equal(xla["disparity"], pal["disparity"])
-    np.testing.assert_array_equal(xla["disparity"], auto["disparity"])
-    np.testing.assert_array_equal(xla["valid"], pal["valid"])
+    default = ModernMatcher(params)(left, right)
+    for k in xla:
+        np.testing.assert_array_equal(xla[k], default[k], err_msg=k)
+    for tier in ("pallas", "auto"):
+        with pytest.raises(ValueError, match="xla"):
+            ModernMatcher(params, tier=tier)
 
 
 def test_modern_matcher_pallas_tier_rejects_unsupported():
-    with pytest.raises(ValueError, match="XLA tier"):
-        ModernMatcher(
-            ModernParams(num_disparities=8, scales=2), tier="pallas"
-        )._use_pallas()
-    # auto falls back silently for the same config.
+    with pytest.raises(ValueError, match="'pallas'"):
+        ModernMatcher(ModernParams(num_disparities=8, scales=2),
+                      tier="pallas")
+    # Multi-scale runs on the default tier.
     m = ModernMatcher(ModernParams(num_disparities=8, scales=2))
     left, right = synthetic_pair(h=16, w=24, seed=7)
     out = m(left, right)
@@ -170,12 +172,48 @@ def test_modern_matcher_pallas_tier_rejects_unsupported():
 
 
 def test_modern_matcher_sgm_pallas_tier():
+    """The SGM route through the serving surface equals modern_forward
+    called directly."""
+    import jax.numpy as jnp
+
+    from stereomatching.models.modern import modern_forward
+
     params = ModernParams(num_disparities=8, aggregation="sgm")
     left, right = synthetic_pair(h=16, w=24, seed=8)
-    got = ModernMatcher(params, tier="pallas")(left, right)
-    want = ModernMatcher(params, tier="xla")(left, right)
-    np.testing.assert_array_equal(got["disparity"], want["disparity"])
-    np.testing.assert_array_equal(got["cost"], want["cost"])
+    got = ModernMatcher(params)(left, right)
+    want = modern_forward(jnp.asarray(left, jnp.int32),
+                          jnp.asarray(right, jnp.int32), params)
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("tier", ["auto", "xla"])
+def test_matcher_tiers_agree_with_oracle(tier):
+    """On the CPU the decision point picks the XLA match route for
+    "auto"; both equal the oracle."""
+    from stereomatching.config import BoundaryMode
+    from stereomatching.oracle import pipeline as oracle
+    from stereomatching.utils.imageio import to_brightness
+
+    params = StereoParams(square_width=9, times=4, lines=4, num_shifts=8,
+                          mode=BoundaryMode.GHOST, edge_rule="exact")
+    left, right = synthetic_pair(h=24, w=32, seed=12)
+    got = Matcher(params, tier=tier)(left, right)
+    want = oracle.run_pipeline(to_brightness(left), to_brightness(right),
+                               params)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_matcher_pallas_tier_raises_off_gpu():
+    """The kernel is never interpreted behind the user's back: on the
+    CPU the pallas tier fails to compile."""
+    left, right = synthetic_pair(h=24, w=32, seed=13)
+    params = StereoParams(square_width=9, num_shifts=8, edge_rule="exact")
+    with pytest.raises(ValueError, match="interpret"):
+        Matcher(params, tier="pallas")(left, right)
+    with pytest.raises(ValueError):
+        Matcher(params, tier="gpu")
 
 
 def test_modern_matcher_sharded_tier():
@@ -183,7 +221,7 @@ def test_modern_matcher_sharded_tier():
 
     if len(jax.devices()) < 4:
         pytest.skip("needs CPU mesh")
-    from stereomatching_tpu.parallel import make_mesh
+    from stereomatching.parallel import make_mesh
 
     params = ModernParams(num_disparities=8, window=5)
     mesh = make_mesh(data=1, rows=4, devices=jax.devices()[:4])
@@ -200,7 +238,7 @@ def test_matcher_sharded_batch_padding_and_validation():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs CPU mesh")
-    from stereomatching_tpu.parallel import make_mesh
+    from stereomatching.parallel import make_mesh
 
     params = StereoParams(square_width=5, times=2, num_shifts=4,
                           edge_rule="exact")
@@ -231,7 +269,7 @@ def test_batch_loader_mesh_sharded_feed(dataset_root):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs CPU mesh")
-    from stereomatching_tpu.parallel import make_mesh
+    from stereomatching.parallel import make_mesh
 
     mesh = make_mesh(data=2, rows=4)
     params = StereoParams(square_width=5, times=2, num_shifts=4,
@@ -264,18 +302,15 @@ def test_loader_feeds_matcher(dataset_root):
 
 
 def test_modern_matcher_sgm_tiers_agree_batched():
-    """The serving surface drives the full Pallas SGM route (batched
-    kernels) and must match the XLA tier bit for bit, single pair and
-    batch."""
+    """The serving surface's batched SGM route equals its single-pair
+    route bit for bit."""
     params = ModernParams(num_disparities=8, aggregation="sgm")
     left, right = synthetic_pair(h=24, w=32, seed=9)
-    xla = ModernMatcher(params, tier="xla")(left, right)
-    pal = ModernMatcher(params, tier="pallas")(left, right)
-    for k in xla:
-        np.testing.assert_array_equal(xla[k], pal[k], err_msg=k)
+    m = ModernMatcher(params)
     lb = np.stack([left, np.flipud(left)])
     rb = np.stack([right, np.flipud(right)])
-    xb = ModernMatcher(params, tier="xla")(lb, rb)
-    pb = ModernMatcher(params, tier="pallas")(lb, rb)
-    for k in xb:
-        np.testing.assert_array_equal(xb[k], pb[k], err_msg=k)
+    xb = m(lb, rb)
+    for i in range(2):
+        single = m(lb[i], rb[i])
+        for k in single:
+            np.testing.assert_array_equal(xb[k][i], single[k], err_msg=k)

@@ -18,9 +18,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.utils.imageio import (
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.utils.imageio import (
     ImageType,
     artifact_ppm_type,
     ppm_bytes,

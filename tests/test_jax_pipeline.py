@@ -9,13 +9,13 @@ both run the same dtype on CPU (identical IEEE op order).
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.models.classic import (
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.models.classic import (
     build_classic_collect_pipeline,
     build_classic_pipeline,
 )
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.utils.imageio import to_brightness
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.utils.imageio import to_brightness
 from tests.util import synthetic_pair
 
 MODES = [BoundaryMode.WRAP, BoundaryMode.GHOST]
@@ -82,8 +82,8 @@ def test_reference_rule_diverges_only_at_float_ties():
     decision margin within a few ulps of zero)."""
     import jax
 
-    from stereomatching_tpu.ops.edges import find_edges as jax_edges
-    from stereomatching_tpu.oracle.pipeline import _EDGE_OPERATORS
+    from stereomatching.ops.edges import find_edges as jax_edges
+    from stereomatching.oracle.pipeline import _EDGE_OPERATORS
 
     l, _ = pair(np.float64, h=64, w=96, seed=11)
     thr = 0.15
@@ -135,12 +135,12 @@ def test_match_and_score_subpixel():
     offset within +-0.5 and zero at boundaries/missing neighbors."""
     import jax.numpy as jnp
 
-    from stereomatching_tpu.ops.argmax import (
+    from stereomatching.ops.argmax import (
         match_and_score,
         match_and_score_subpixel,
     )
-    from stereomatching_tpu.ops.edges import find_edges
-    from stereomatching_tpu.utils.imageio import to_brightness
+    from stereomatching.ops.edges import find_edges
+    from stereomatching.utils.imageio import to_brightness
 
     params = StereoParams(square_width=9, num_shifts=8, edge_rule="exact")
     left, right = synthetic_pair(h=32, w=48, seed=17)

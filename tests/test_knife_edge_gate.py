@@ -10,11 +10,11 @@ the 3 is re-proven an exact tie (rational margin 0).  The downstream gate
 then proves the remaining artifacts bit-equivalent to the C semantics
 conditional on those edges.
 
-The live TPU version of this gate is ``tools/diff_vs_reference.sh '' ''
-pallas`` (verified exit 0 on hardware); this CPU test pins the same
-invariants without a chip via the NumPy oracle's exact rule, which the
-jax/pallas/sharded edge kernels are bit-identical to
-(tests/test_jax_pipeline.py, tests/test_pallas.py).
+The on-device version of this gate is ``tools/diff_vs_reference.sh ''
+'' pallas``; this CPU test pins the same invariants without a card via
+the NumPy oracle's exact rule, which the jax/pallas/sharded routes'
+edges are bit-identical to (tests/test_jax_pipeline.py,
+tests/test_pallas.py).
 """
 
 import importlib.util
@@ -26,9 +26,9 @@ import sys
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.utils.imageio import (
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.utils.imageio import (
     artifact_ppm_type,
     ppm_bytes,
     read_png_gray,
@@ -140,8 +140,8 @@ def test_fixture1_divergence_pinned_and_gated(tmp_path, mode, src, subdir):
 def test_fixture2_tie_counts_pinned(tmp_path, mode, src, subdir):
     """Second-size anchor: fixture 2's divergence stays at 7+3 proven
     exact ties per mode (the tie density holds at ~1e-4 of pixels
-    across the fixture ladder — 3/10/44 at the three sizes measured
-    live on TPU, docs/BENCHMARKS.md round 5)."""
+    across the fixture ladder: 3/10/44 ties at the three smallest
+    fixtures)."""
     ke = _knife_edge()
     fix2 = os.path.join(REF, "test/imgs/2-480x270")
     if not os.path.isdir(fix2):

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import ModernParams
-from stereomatching_tpu.models.modern import build_modern_pipeline, disparity_one_view
-from stereomatching_tpu.ops.costvolume import fill_invalid, lr_consistency, sad_disparity
+from stereomatching.config import ModernParams
+from stereomatching.models.modern import build_modern_pipeline, disparity_one_view
+from stereomatching.ops.costvolume import fill_invalid, lr_consistency, sad_disparity
 from tests.util import synthetic_pair
 
 
@@ -146,7 +146,7 @@ def test_multiscale_coarse_influences_cost():
 
 
 def test_popcount32():
-    from stereomatching_tpu.ops.costvolume import popcount32
+    from stereomatching.ops.costvolume import popcount32
 
     vals = np.array([0, 1, 3, 0xFFFFFF, 0x00F0F0F0, 2**24 - 1], dtype=np.int32)
     got = np.asarray(popcount32(vals))
@@ -155,7 +155,7 @@ def test_popcount32():
 
 
 def test_census_transform_brute_force():
-    from stereomatching_tpu.ops.costvolume import census_transform
+    from stereomatching.ops.costvolume import census_transform
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, size=(12, 16)).astype(np.int32)
@@ -177,7 +177,7 @@ def test_census_transform_brute_force():
 
 @pytest.mark.parametrize("scales", [1, 2])
 def test_census_cost_recovers_known_shift(scales):
-    from stereomatching_tpu.utils.metrics import bad_pixel_rate
+    from stereomatching.utils.metrics import bad_pixel_rate
 
     rng = np.random.default_rng(4)
     base = rng.integers(0, 256, size=(40, 80)).astype(np.int32)
@@ -195,7 +195,7 @@ def test_census_cost_recovers_known_shift(scales):
 def test_census_invariant_to_illumination_gain():
     """Census matching must survive a brightness scaling of one view
     that breaks SAD."""
-    from stereomatching_tpu.models.modern import disparity_one_view
+    from stereomatching.models.modern import disparity_one_view
 
     rng = np.random.default_rng(5)
     base = rng.integers(20, 200, size=(40, 80)).astype(np.int32)
@@ -215,7 +215,7 @@ def test_census_invariant_to_illumination_gain():
 
 
 def test_median3x3_matches_numpy():
-    from stereomatching_tpu.ops.costvolume import median3x3
+    from stereomatching.ops.costvolume import median3x3
 
     rng = np.random.default_rng(0)
     x = rng.integers(0, 100, size=(17, 23)).astype(np.int32)
@@ -227,7 +227,7 @@ def test_median3x3_matches_numpy():
 
 
 def test_median_filter_removes_speckle():
-    from stereomatching_tpu.utils.metrics import bad_pixel_rate
+    from stereomatching.utils.metrics import bad_pixel_rate
 
     rng = np.random.default_rng(1)
     base = rng.integers(0, 256, size=(40, 80)).astype(np.int32)
@@ -247,34 +247,57 @@ def test_median_filter_removes_speckle():
     assert o2["subpixel"].shape == (40, 80)
 
 
+def _brute_fill_invalid(d, v, iterations):
+    """fill_invalid's Jacobi sweeps in float32 NumPy, literal loops."""
+    d = d.astype(np.float32).copy()
+    v = v.astype(bool).copy()
+    h, w = d.shape
+    for _ in range(iterations):
+        nd, nv = d.copy(), v.copy()
+        for y in range(h):
+            for x in range(w):
+                if v[y, x]:
+                    continue
+                num, den = np.float32(0), np.float32(0)
+                for yy, xx in ((y, x + 1), (y, x - 1), (y + 1, x), (y - 1, x)):
+                    if 0 <= yy < h and 0 <= xx < w and v[yy, xx]:
+                        num += d[yy, xx]
+                        den += 1
+                if den > 0:
+                    nd[y, x] = num / den
+                    nv[y, x] = True
+        d, v = nd, nv
+    return d
+
+
 @pytest.mark.parametrize("shape", [(17, 23), (24, 128), (9, 256), (33, 140)])
 def test_fill_invalid_pallas_bit_identical(shape):
-    """The fused hole-fill kernel must reproduce ops/costvolume.
-    fill_invalid bit for bit (same float order, same IEEE divide),
-    including exact-lane-tile widths where the circular roll would
-    otherwise wrap real columns."""
-    from stereomatching_tpu.ops.fused_diffusion import fill_invalid_pallas
-
+    """fill_invalid against literal loops (valid-aware 4-neighbour
+    means, holes become valid once a neighbour is), including rows and
+    columns at the image border; also unrolled == scanned."""
     h, w = shape
     rng = np.random.default_rng(h * w)
-    d = jnp.asarray(rng.uniform(0, 60, size=(h, w)).astype(np.float32))
-    v = jnp.asarray(rng.random((h, w)) < 0.6)
-    want = fill_invalid(d, v, iterations=16)
-    got = fill_invalid_pallas(d, v, iterations=16, tile_rows=16)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    d = rng.uniform(0, 60, size=(h, w)).astype(np.float32)
+    v = rng.random((h, w)) < 0.6
+    got = fill_invalid(jnp.asarray(d), jnp.asarray(v), iterations=3)
+    np.testing.assert_allclose(np.asarray(got), _brute_fill_invalid(d, v, 3),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(
+        np.asarray(fill_invalid(jnp.asarray(d), jnp.asarray(v), 3,
+                                unroll=True)),
+        np.asarray(got))
 
 
 def test_fill_invalid_pallas_batched_and_zero_iters():
-    from stereomatching_tpu.ops.fused_diffusion import fill_invalid_pallas
-
     rng = np.random.default_rng(7)
     d = jnp.asarray(rng.uniform(0, 60, size=(3, 20, 31)).astype(np.float32))
     v = jnp.asarray(rng.random((3, 20, 31)) < 0.5)
-    want = jax.vmap(lambda a, b: fill_invalid(a, b, iterations=5))(d, v)
-    got = fill_invalid_pallas(d, v, iterations=5)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    got = jax.vmap(lambda a, b: fill_invalid(a, b, iterations=5))(d, v)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            np.asarray(got[i]), np.asarray(fill_invalid(d[i], v[i], 5)))
     np.testing.assert_array_equal(
-        np.asarray(fill_invalid_pallas(d, v, iterations=0)), np.asarray(d)
+        np.asarray(fill_invalid(d[0], v[0], iterations=0)), np.asarray(d[0])
     )
 
 
@@ -288,20 +311,12 @@ def test_lr_consistency_unroll_bit_identical():
 
 
 def test_multiscale_sgm_fusion():
-    """Round 5: scales=2 fuses a half-res per-pixel cost prior into
-    the SGM volume (it was rejected in round 4).  The fused volume
-    must differ from single-scale, stay within the scaled cost bound
-    (which sizes the storage dtype), run end-to-end, and the pallas
-    dispatch must fall back to the XLA tier."""
+    """scales=2 fuses a half-res per-pixel cost prior into the SGM
+    volume.  The fused volume must differ from single-scale, only add
+    cost, and run end-to-end."""
     import jax.numpy as jnp
-    import pytest
 
-    from stereomatching_tpu.models.modern import (
-        _sgm_cost_bound,
-        _sgm_volume,
-        build_modern_pipeline,
-        modern_pallas_supported,
-    )
+    from stereomatching.models.modern import _sgm_volume, build_modern_pipeline
 
     left, right = synthetic_pair(h=32, w=48, seed=5)
     p1 = ModernParams(num_disparities=8, aggregation="sgm", cost="census",
@@ -314,24 +329,9 @@ def test_multiscale_sgm_fusion():
                                 jnp.asarray(right, jnp.int32), p2))
     assert (v2 >= v1).all()  # the coarse prior adds non-negative cost
     assert (v2 > v1).any()
-    assert v2.max() <= _sgm_cost_bound(p2)
-    assert _sgm_cost_bound(p2) == _sgm_cost_bound(p1) * (
-        1 + p2.coarse_weight
-    )
-    ok, why = modern_pallas_supported(p2)
-    assert not ok and "XLA" in why
+    # Census costs are at most 24 per level.
+    assert v2.max() <= 24 * (1 + p2.coarse_weight)
 
     out = build_modern_pipeline(p2)(left.astype(np.int32),
                                     right.astype(np.int32))
     assert np.asarray(out["disparity"]).shape == left.shape
-    # dhw and hwd layouts agree on the fused volume.
-    vd = np.asarray(_sgm_volume(jnp.asarray(left, jnp.int32),
-                                jnp.asarray(right, jnp.int32), p2,
-                                layout="dhw"))
-    np.testing.assert_array_equal(np.moveaxis(vd, 0, -1), v2)
-    # use_pallas requests fall back (no exception, same values).
-    out_pal = build_modern_pipeline(p2, use_pallas=True)(
-        left.astype(np.int32), right.astype(np.int32)
-    )
-    np.testing.assert_array_equal(np.asarray(out_pal["disparity"]),
-                                  np.asarray(out["disparity"]))

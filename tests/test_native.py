@@ -3,17 +3,22 @@ imageio.py are the executable spec; native/stereo_io.cpp must produce
 byte-identical output.  Builds the library with make if a compiler is
 available; skips otherwise."""
 
+import os
 import shutil
+import struct
 import subprocess
+import zlib
 
 import numpy as np
 import pytest
 
-from stereomatching_tpu.utils import native
-from stereomatching_tpu.utils.imageio import ImageType
+from stereomatching.utils import native
+from stereomatching.utils.imageio import ImageType
 from tests.util import synthetic_pair
 
-NATIVE_DIR = "/root/repo/native"
+NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
+# 24x40 grayscale PNG whose rows cycle through all five PNG filter types.
+FILTERS_PNG = os.path.join(os.path.dirname(__file__), "data", "filters.png")
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +100,7 @@ def test_ppm_render_gray_float_out_of_range(lib):
     huge = np.full((8, 8), 1e13)
     assert lib.ppm_render(huge, "gray_float") is None
 
-    from stereomatching_tpu.utils.imageio import ppm_bytes
+    from stereomatching.utils.imageio import ppm_bytes
 
     out = ppm_bytes(huge, ImageType.GRAY_FLOAT)
     assert out.startswith(b"P3\n8 8\n255\n2550000")
@@ -140,12 +145,38 @@ def test_png_write_matches_python_spec(lib, tmp_path):
     assert lib.png_write_gray(pixels) == want
 
 
+def _row_filter_types(data: bytes) -> set:
+    """The filter-type byte of every scanline of a gray 8-bit PNG."""
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", payload[:8])
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + n
+    raw = zlib.decompress(idat)
+    return {raw[y * (w + 1)] for y in range(h)}
+
+
 def test_png_read_reference_fixture(lib):
-    """The native decoder must handle real stb-era PNGs (all filter types)."""
-    with open("/root/reference/test/imgs/1-240x135/a.png", "rb") as f:
+    """The native decoder must handle every PNG filter type (0-4) and
+    agree with the pure-Python decoder."""
+    from stereomatching.utils import imageio
+
+    with open(FILTERS_PNG, "rb") as f:
         data = f.read()
+    assert _row_filter_types(data) == {0, 1, 2, 3, 4}
     out = lib.png_read_gray(data)
-    assert out.shape == (135, 240)
+    assert out.shape == (24, 40) and int(out.sum()) == 134617
+    lib_state = (native._lib, native._lib_checked)
+    try:
+        native._lib, native._lib_checked = None, True  # force pure Python
+        want = imageio.read_png_gray(FILTERS_PNG)
+    finally:
+        native._lib, native._lib_checked = lib_state
+    np.testing.assert_array_equal(out, want)
 
 
 def test_png_rejects_non_grayscale(lib):

@@ -8,13 +8,13 @@ then checks the oracle end-to-end against the compiled C reference.
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
 from tests.util import synthetic_pair
 
 
 def brightness_pair(h=48, w=64, seed=0):
-    from stereomatching_tpu.utils.imageio import to_brightness
+    from stereomatching.utils.imageio import to_brightness
 
     l, r = synthetic_pair(h, w, seed)
     return to_brightness(l), to_brightness(r)

@@ -2,8 +2,8 @@
 so a kernel or pipeline change that silently degrades MATCH QUALITY
 (not just bit-compat, which the differential suites pin) fails CI.
 
-Thresholds are set ~30-50% above the measured round-4 values
-(docs/BENCHMARKS.md quality matrix) — loose enough for platform noise,
+Thresholds are set ~30-50% above the values measured when the gate
+was written — loose enough for platform noise,
 tight enough that a real regression (e.g. a broken tie rule or a
 mis-seeded recurrence) trips them.  All scenes are the built-in
 synthetic generators with exact ground truth (utils/synthetic.py); the
@@ -14,10 +14,10 @@ environment's missing datasets cannot provide.
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import ModernParams
-from stereomatching_tpu.models.modern import build_modern_pipeline
-from stereomatching_tpu.utils.metrics import disparity_report
-from stereomatching_tpu.utils.synthetic import (
+from stereomatching.config import ModernParams
+from stereomatching.models.modern import build_modern_pipeline
+from stereomatching.utils.metrics import disparity_report
+from stereomatching.utils.synthetic import (
     blob_scene,
     occlusion_mask,
     photometric_perturb,
@@ -108,7 +108,7 @@ def test_reference_pair_cross_algorithm_agreement():
     edge-matching web — an independent algorithm, bit-identical to the
     serial C reference — on pixels where both are confident.  Thresholds
     are ~30-50% above the round-5 measured values (EPE 1.59, bad1 0.40,
-    bad2 0.23 at conf_frac=0.7; docs/BENCHMARKS.md real-image table);
+    bad2 0.23 at conf_frac=0.7);
     a regression in either pipeline's real-image behavior trips this
     even though no ground-truth disparity exists for these scenes."""
     import importlib.util

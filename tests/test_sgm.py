@@ -2,14 +2,13 @@
 force NumPy reference, and end-to-end quality gain over box matching on
 low-texture scenes (SGM's raison d'être)."""
 
-import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
-import jax.numpy as jnp
 
-from stereomatching_tpu.config import ModernParams
-from stereomatching_tpu.models.modern import build_modern_pipeline
-from stereomatching_tpu.ops.sgm import (
+from stereomatching.config import ModernParams
+from stereomatching.models.modern import build_modern_pipeline
+from stereomatching.ops.sgm import (
     _directional,
     right_disparity_from_left_volume,
     sgm_aggregate,
@@ -79,7 +78,7 @@ def _brute_diag(vol, p1, p2, dy, dx):
 
 @pytest.mark.parametrize("dx", [1, -1])
 def test_directional_diag_matches_brute_force(dx):
-    from stereomatching_tpu.ops.sgm import _directional_diag
+    from stereomatching.ops.sgm import _directional_diag
 
     rng = np.random.default_rng(3)
     vol = rng.integers(0, 30, size=(6, 9, 5)).astype(np.int32)
@@ -121,7 +120,7 @@ def test_right_disparity_reprojection():
 def test_sgm_pipeline_end_to_end_and_lowtexture_gain():
     """On a scene with a weakly-textured shifted region, SGM's smoothness
     paths must beat per-pixel box costs."""
-    from stereomatching_tpu.utils.metrics import bad_pixel_rate
+    from stereomatching.utils.metrics import bad_pixel_rate
 
     rng = np.random.default_rng(7)
     # weak texture: small random jitter around a constant
@@ -159,476 +158,202 @@ def test_sgm_batched():
                                   np.asarray(single["disparity"]))
 
 
-class TestPallasSGM:
-    """The VMEM directional kernel (ops/fused_sgm.py) must be
-    bit-identical to the XLA scan for any shape/padding combination."""
+def _brute_right_disparity(vol):
+    """Right-view disparity by re-projection, literal loops:
+    cost_R(x, d) = vol[x + d (clamped), d], first minimum wins."""
+    h, w, d_count = vol.shape
+    out = np.zeros((h, w), np.int32)
+    for y in range(h):
+        for x in range(w):
+            costs = [vol[y, min(x + d, w - 1), d] for d in range(d_count)]
+            out[y, x] = int(np.argmin(costs))
+    return out
 
-    def _vol(self, h, w, d, seed=0, hi=100):
-        rng = np.random.default_rng(seed)
-        return rng.integers(0, hi, size=(h, w, d)).astype(np.int32)
 
-    @pytest.mark.parametrize("shape", [(20, 30, 8), (33, 47, 11), (8, 8, 3),
-                                       (17, 130, 16)])
-    @pytest.mark.parametrize("small_values", [False, True])
-    def test_aggregate_matches_xla(self, shape, small_values):
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
+def _brute_argmin_subpixel(vol):
+    """First-minimum argmin + parabola offset over the last axis."""
+    disp = vol.argmin(axis=-1).astype(np.int32)
+    cost = vol.min(axis=-1)
+    sub = disp.astype(np.float64)
+    h, w, d_count = vol.shape
+    for y in range(h):
+        for x in range(w):
+            d = disp[y, x]
+            if 0 < d < d_count - 1:
+                cl, cm, cr = (float(vol[y, x, d - 1]), float(cost[y, x]),
+                              float(vol[y, x, d + 1]))
+                denom = cl - 2 * cm + cr
+                if denom > 0:
+                    sub[y, x] = d + np.clip((cl - cr) / (2 * denom), -0.5, 0.5)
+    return disp, sub, cost
 
-        vol = jnp.asarray(self._vol(*shape, seed=shape[0], hi=255))
-        np.testing.assert_array_equal(
-            np.asarray(sgm_aggregate_pallas(vol, small_values=small_values)),
-            np.asarray(sgm_aggregate(vol)),
-        )
 
-    @pytest.mark.parametrize("cost_bound", [None, 7999])
-    def test_chained_8dir_int16_overflow_guard(self, cost_bound):
-        """int16-storage configs with max_cost + p2 > 5461 satisfy the
-        small_values contract (2x per-axis sum fits int16) but the
-        8-direction CHAINED v-major total 6*(max_cost+p2) would wrap the
-        int16 fold buffer silently.  The chain must fall back to the
-        unchained merge there — results bit-identical to int32 XLA —
-        both with an explicit cost_bound proving the overflow and with
-        no bound (conservative fallback)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        # max_cost + p2 = 13999: under the 16384 int16 sentinel and the
-        # 2x per-axis fold fits int16, but 6x = 83994 wraps.
-        vol = jnp.asarray(self._vol(10, 14, 8, seed=2, hi=8000))
-        p1, p2 = 8, 6000
-        want = sgm_aggregate(vol, p1, p2, directions=8)
-        # The guard must actually be exercised: the 6 v-major directions
-        # alone exceed int16 (a wrapped chain could not produce this).
-        from stereomatching_tpu.ops.sgm import _directional
-
-        lr = _directional(vol, p1, p2)
-        rl = jnp.flip(_directional(jnp.flip(vol, axis=1), p1, p2), axis=1)
-        assert int(jnp.max(want - lr - rl)) > 2**15
-        got = sgm_aggregate_pallas(
-            vol, p1, p2, small_values=True, directions=8,
-            cost_bound=cost_bound,
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_chained_8dir_int16_still_chains_under_bound(self):
-        """With a cost_bound proving 6*(max_cost+p2) < 2^15 the chained
-        int16 path stays selected and stays bit-identical."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        vol = jnp.asarray(self._vol(10, 14, 8, seed=3, hi=100))
-        want = sgm_aggregate(vol, 8, 96, directions=8)
-        got = sgm_aggregate_pallas(
-            vol, 8, 96, small_values=True, directions=8, cost_bound=99,
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_directional_reverse_padding(self):
-        """Reverse scan on an S the requested strip does not divide
-        (the strip size walks down to a divisor; no S padding may leak
-        into the result)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(5)
-        vol = rng.integers(0, 50, size=(13, 6, 9)).astype(np.int32)  # S=13
-        got = sgm_directional_pallas(jnp.asarray(vol), 8, 96, reverse=True,
-                                     strip=4)
-        # Reference: flip, forward XLA scan, flip back.
-        ref_in = jnp.flip(jnp.moveaxis(jnp.asarray(vol), 1, 2), axis=0)
-        ref = _directional(jnp.moveaxis(ref_in, 0, 1), 8, 96)  # [P, S, D]
-        ref = jnp.flip(jnp.moveaxis(ref, 1, 0), axis=0)  # [S, P, D]
-        np.testing.assert_array_equal(
-            np.asarray(got), np.asarray(jnp.moveaxis(ref, 1, 2))
-        )
-
-    def test_batched_aggregate_matches_per_pair(self):
-        """Batches ride the kernel's lane axis; each pair's result must
-        be the same bits as running it alone."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        vols = jnp.stack(
-            [jnp.asarray(self._vol(18, 26, 9, seed=s, hi=200)) for s in range(3)]
-        )
-        got = sgm_aggregate_pallas(vols)
-        assert got.shape == vols.shape
-        for i in range(vols.shape[0]):
-            np.testing.assert_array_equal(
-                np.asarray(got[i]), np.asarray(sgm_aggregate_pallas(vols[i])),
-                err_msg=f"pair {i}",
-            )
-
-    def test_tail_padded_merge_matches_downstream_pad(self):
-        """tail_padded=True folds the tail's edge-replicated lane pad
-        into the merge fusion; the tail must produce the same bits from
-        either form (and the donated reverse-pass volume must not
-        change results — both are the production route at large batch,
-        models/modern._sgm_forward)."""
-        from stereomatching_tpu.ops.fused_sgm import (
-            sgm_aggregate_pallas,
-            sgm_tail_pallas,
-            tail_lane_pad,
-        )
-
-        rng = np.random.default_rng(23)
-        # W=150: neither a lane-tile multiple nor < 128 — the hard case
-        # for the folded edge pad.
-        vol = rng.integers(0, 200, size=(2, 19, 150, 11)).astype(np.int32)
-        dvol = jnp.asarray(np.transpose(vol, (0, 3, 1, 2)))  # [B, D, H, W]
-        plain = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw")
-        padded = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw",
-                                      tail_padded=True)
-        d, w = 11, 150
-        assert padded.shape[-1] == -(-w // 128) * 128 + tail_lane_pad(d)
-        np.testing.assert_array_equal(np.asarray(padded[..., :w]),
-                                      np.asarray(plain))
-        # Pad lanes must be the edge-replicated last real column.
-        np.testing.assert_array_equal(
-            np.asarray(padded[..., w:]),
-            np.broadcast_to(np.asarray(plain[..., w - 1 :]),
-                            padded[..., w:].shape),
-        )
-        want = sgm_tail_pallas(plain)
-        got = sgm_tail_pallas(padded, real_width=w)
-        for w_, g_ in zip(want, got):
-            np.testing.assert_array_equal(np.asarray(g_), np.asarray(w_))
-
-    def test_aggregate_dhw_layout_bit_identical(self):
-        """layout="dhw" (the tail-friendly disparity-major volume) must
-        be the hwd result transposed, bit for bit."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        rng = np.random.default_rng(17)
-        vol = rng.integers(0, 200, size=(2, 13, 21, 10)).astype(np.int32)
-        want = sgm_aggregate_pallas(jnp.asarray(vol), 8, 96)
-        got = sgm_aggregate_pallas(
-            jnp.asarray(np.transpose(vol, (0, 3, 1, 2))), 8, 96,
-            layout="dhw")
-        np.testing.assert_array_equal(
-            np.transpose(np.asarray(got), (0, 2, 3, 1)), np.asarray(want))
-
-    def test_tail_dhw_layout_bit_identical(self):
-        from stereomatching_tpu.ops.sgm import (
-            right_disparity_from_left_volume,
-            volume_argmin_subpixel,
-        )
-
-        rng = np.random.default_rng(19)
-        vol = rng.integers(0, 500, size=(15, 23, 12)).astype(np.int32)
-        want = volume_argmin_subpixel(jnp.asarray(vol))
-        got = volume_argmin_subpixel(
-            jnp.asarray(np.transpose(vol, (2, 0, 1))), layout="dhw")
-        for w_, g_ in zip(want, got):
-            np.testing.assert_array_equal(np.asarray(g_), np.asarray(w_))
-        want_r = right_disparity_from_left_volume(jnp.asarray(vol))
-        got_r = right_disparity_from_left_volume(
-            jnp.asarray(np.transpose(vol, (2, 0, 1))), layout="dhw")
-        np.testing.assert_array_equal(np.asarray(got_r), np.asarray(want_r))
-
-    @pytest.mark.parametrize("reverse", [False, True])
-    def test_directional_int16_storage_bit_identical(self, reverse):
-        """int16 input selects int16 strip/carry storage; outputs (after
-        widening) must be the same bits as the int32 path."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(11)
-        vol = rng.integers(0, 300, size=(15, 10, 140)).astype(np.int32)
-        want = sgm_directional_pallas(jnp.asarray(vol), 8, 96, reverse=reverse,
-                                      strip=4)
-        got = sgm_directional_pallas(jnp.asarray(vol.astype(np.int16)), 8, 96,
-                                     reverse=reverse, strip=4)
-        assert got.dtype == jnp.int16
-        np.testing.assert_array_equal(np.asarray(got, dtype=np.int32),
-                                      np.asarray(want))
-
-    @pytest.mark.parametrize("reverse", [False, True])
-    def test_directional_bf16_lattice_bit_identical(self, reverse):
-        """bfloat16 input selects the bf16 lattice (_step_math_bf16);
-        values (after float->int) must match the int32 path exactly
-        under the 2*(max_cost+p2) <= 256 contract."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(13)
-        # max_cost 24 (census-class), p2 96: every intermediate <= 240.
-        vol = rng.integers(0, 25, size=(15, 10, 140)).astype(np.int32)
-        want = sgm_directional_pallas(jnp.asarray(vol), 8, 96,
-                                      reverse=reverse, strip=4)
-        got = sgm_directional_pallas(
-            jnp.asarray(vol).astype(jnp.bfloat16), 8, 96,
-            reverse=reverse, strip=4)
-        assert got.dtype == jnp.bfloat16
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int32), np.asarray(want))
-
-    @pytest.mark.slow  # opt-in probe surface (bf16 lattice)
-    def test_aggregate_soft_values_bit_identical(self):
-        """soft_values routes the whole 4-direction aggregation through
-        the bf16 lattice; the summed volume must match the int32 path
-        bit for bit (including the folded reverse pass and the dhw
-        tail-padded merge)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        rng = np.random.default_rng(29)
-        vol = rng.integers(0, 25, size=(2, 9, 150, 11)).astype(np.int32)
-        dvol = jnp.asarray(np.transpose(vol, (0, 3, 1, 2)))
-        want = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw",
-                                    tail_padded=True)
-        got = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw",
-                                   tail_padded=True, soft_values=True,
-                                   out_dtype=jnp.int16)
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int32), np.asarray(want))
-        # Out-of-bound penalties must fall back (2*p2 > 256), not corrupt.
-        big_p2 = sgm_aggregate_pallas(dvol, 8, 200, layout="dhw",
-                                      soft_values=True)
-        ref_p2 = sgm_aggregate_pallas(dvol, 8, 200, layout="dhw")
-        np.testing.assert_array_equal(np.asarray(big_p2), np.asarray(ref_p2))
-
-    @pytest.mark.parametrize("lane_shift", [1, -1])
-    @pytest.mark.parametrize("reverse", [False, True])
-    def test_directional_diag_chunked_matches_full_plane(self, lane_shift,
-                                                         reverse):
-        """The chunk-major diagonal walk (boundary-lane handoff between
-        sequential chunks) must be bit-identical to the full-plane form
-        — including mid-chunk image boundaries (period 100 does not
-        align the 128-lane chunks)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(47)
-        # P = 3 images x 100 lanes = 300 -> pp 384, chunk 128.
-        vol = jnp.asarray(rng.integers(0, 25, (11, 8, 300)).astype(np.int32))
-        kw = dict(lane_shift=lane_shift, lane_period=100, reverse=reverse,
-                  strip=4)
-        full = sgm_directional_pallas(vol, 8, 96, chunk_lanes=0, **kw)
-        chunked = sgm_directional_pallas(vol, 8, 96, chunk_lanes=128, **kw)
-        np.testing.assert_array_equal(np.asarray(chunked), np.asarray(full))
-
-    @pytest.mark.parametrize(
-        "storage",
-        ["int32", "int16",
-         pytest.param("bf16", marks=pytest.mark.slow)],  # probe surface
+def _brute_aggregate(vol, p1, p2, directions):
+    """Sum of the literal-loop directional passes."""
+    vol = vol.astype(np.int64)
+    out = (
+        _brute_lr(vol, p1, p2)
+        + _brute_lr(vol[:, ::-1], p1, p2)[:, ::-1]
+        + _brute_lr(vol.transpose(1, 0, 2), p1, p2).transpose(1, 0, 2)
+        + _brute_lr(vol.transpose(1, 0, 2)[:, ::-1], p1,
+                    p2)[:, ::-1].transpose(1, 0, 2)
     )
-    def test_aggregate_eight_directions_matches_xla(self, storage):
-        """directions=8 (diagonal lane-shift passes) must match the XLA
-        oracle bit for bit in every storage format."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
+    if directions == 8:
+        for dy in (1, -1):
+            for dx in (1, -1):
+                out = out + _brute_diag(vol, p1, p2, dy, dx)
+    return out
 
-        rng = np.random.default_rng(31)
-        vol = rng.integers(0, 25, size=(2, 9, 150, 11)).astype(np.int32)
-        want = np.stack([
-            np.asarray(sgm_aggregate(jnp.asarray(v), 8, 96, directions=8))
-            for v in vol
-        ])
-        dvol = jnp.asarray(np.transpose(vol, (0, 3, 1, 2)))
-        got = sgm_aggregate_pallas(
-            dvol, 8, 96, layout="dhw", directions=8,
-            small_values=storage == "int16", soft_values=storage == "bf16",
-        )
+
+def _brute_volume(left, right, params):
+    """[H, W, D] per-pixel cost: SAD or census Hamming distance against
+    the right view at x - d, out-of-frame columns edge-replicated."""
+    from stereomatching.ops.costvolume import census_transform
+
+    if params.cost == "census":
+        left = np.asarray(census_transform(jnp.asarray(left),
+                                           params.census_window))
+        right = np.asarray(census_transform(jnp.asarray(right),
+                                            params.census_window))
+    left = left.astype(np.int64)
+    right = right.astype(np.int64)
+    h, w = left.shape
+    vol = np.zeros((h, w, params.num_disparities), np.int64)
+    for d in range(params.num_disparities):
+        other = right[:, np.clip(np.arange(w) - d, 0, w - 1)]
+        if params.cost == "census":
+            x = (left ^ other) & 0xFFFFFFFF
+            vol[..., d] = [[bin(v).count("1") for v in row] for row in x]
+        else:
+            vol[..., d] = np.abs(left - other)
+    return vol
+
+
+class TestSGMReference:
+    """The XLA SGM route against literal NumPy loops: aggregation over
+    shapes, penalties and path counts; the volume per cost; the tail
+    (argmin, sub-pixel, re-projection, uniqueness); the pipeline's
+    post-processing options."""
+
+    @pytest.mark.parametrize("shape", [(5, 7, 4), (6, 9, 5), (3, 11, 6),
+                                       (8, 4, 3)])
+    @pytest.mark.parametrize("p1,p2", [(0, 0), (3, 20), (8, 96)])
+    @pytest.mark.parametrize("directions", [4, 8])
+    def test_aggregate_matches_brute_force(self, shape, p1, p2, directions):
+        rng = np.random.default_rng(sum(shape) + p2)
+        vol = rng.integers(0, 40, size=shape).astype(np.int32)
+        got = np.asarray(sgm_aggregate(jnp.asarray(vol), p1, p2,
+                                       directions=directions))
         np.testing.assert_array_equal(
-            np.transpose(np.asarray(got), (0, 2, 3, 1)), want)
+            got, _brute_aggregate(vol, p1, p2, directions))
+
+    def test_aggregate_rejects_bad_arguments(self):
+        vol = jnp.zeros((4, 4, 3), jnp.int32)
+        with pytest.raises(ValueError):
+            sgm_aggregate(vol, 5, 2)
+        with pytest.raises(ValueError):
+            sgm_aggregate(vol, 1, 2, directions=6)
+
+    @pytest.mark.parametrize("cost", ["sad", "census"])
+    @pytest.mark.parametrize("scales", [1, 2])
+    def test_sgm_volume_matches_brute_force(self, cost, scales):
+        from stereomatching.models.modern import _sgm_volume
+
+        from tests.util import synthetic_pair
+
+        left, right = synthetic_pair(h=12, w=20, seed=31)
+        params = ModernParams(num_disparities=5, aggregation="sgm",
+                              cost=cost, scales=scales)
+        got = np.asarray(_sgm_volume(jnp.asarray(left, jnp.int32),
+                                     jnp.asarray(right, jnp.int32), params))
+        want = _brute_volume(left, right, params)
+        if scales == 1:
+            np.testing.assert_array_equal(got, want)
+        else:
+            # The half-resolution prior only adds cost.
+            assert (got >= want).all() and (got > want).any()
+
+    @pytest.mark.parametrize("shape", [(4, 9, 6), (7, 5, 3), (3, 16, 11)])
+    @pytest.mark.parametrize("layout", ["hwd", "dhw"])
+    def test_tail_matches_brute_force(self, shape, layout):
+        rng = np.random.default_rng(shape[2])
+        vol = rng.integers(0, 50, size=shape).astype(np.int32)
+        arg = vol if layout == "hwd" else np.moveaxis(vol, -1, 0)
+        disp, sub, cost = volume_argmin_subpixel(jnp.asarray(arg),
+                                                 layout=layout)
+        dr = right_disparity_from_left_volume(jnp.asarray(arg), layout=layout)
+        want_d, want_sub, want_cost = _brute_argmin_subpixel(vol)
+        np.testing.assert_array_equal(np.asarray(disp), want_d)
+        np.testing.assert_array_equal(np.asarray(cost), want_cost)
+        np.testing.assert_allclose(np.asarray(sub), want_sub, atol=1e-6)
+        np.testing.assert_array_equal(np.asarray(dr),
+                                      _brute_right_disparity(vol))
+
+    @pytest.mark.parametrize("cost", ["sad", "census"])
+    @pytest.mark.parametrize("directions", [4, 8])
+    @pytest.mark.parametrize("d_count", [4, 7])
+    def test_modern_sgm_matches_brute_force(self, cost, directions, d_count):
+        """The whole SGM route on one pair: volume, aggregation, argmin,
+        re-projection and LR check against literal loops."""
+        from stereomatching.models.modern import modern_forward
+
+        from tests.util import synthetic_pair
+
+        left, right = synthetic_pair(h=10, w=16, seed=d_count)
+        params = ModernParams(num_disparities=d_count, aggregation="sgm",
+                              cost=cost, sgm_directions=directions)
+        got = modern_forward(jnp.asarray(left, jnp.int32),
+                             jnp.asarray(right, jnp.int32), params)
+        agg = _brute_aggregate(_brute_volume(left, right, params),
+                               params.sgm_p1, params.sgm_p2, directions)
+        want_d, want_sub, want_cost = _brute_argmin_subpixel(agg)
+        want_dr = _brute_right_disparity(agg)
+        np.testing.assert_array_equal(np.asarray(got["disparity"]), want_d)
+        np.testing.assert_array_equal(np.asarray(got["cost"]), want_cost)
+        np.testing.assert_array_equal(np.asarray(got["disparity_right"]),
+                                      want_dr)
+        np.testing.assert_allclose(np.asarray(got["subpixel"]), want_sub,
+                                   atol=1e-5)
+        h, w = want_d.shape
+        want_valid = np.zeros((h, w), bool)
+        for y in range(h):
+            for x in range(w):
+                xr = x - want_d[y, x]
+                want_valid[y, x] = (
+                    xr >= 0 and abs(int(want_dr[y, xr]) - int(want_d[y, x]))
+                    <= params.lr_max_diff
+                )
+        np.testing.assert_array_equal(np.asarray(got["valid"]), want_valid)
 
     def test_modern_sgm_eight_directions_route(self):
-        """The full modern pipeline with sgm_directions=8: pallas and
-        XLA tiers must agree bit for bit."""
-        from stereomatching_tpu.models.modern import modern_forward
-
-        rng = np.random.default_rng(33)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        params = ModernParams(num_disparities=6, aggregation="sgm",
-                              cost="census", sgm_directions=8)
-        want = modern_forward(l, r, params)
-        got = modern_forward(l, r, params, use_pallas=True)
-        for key in ("disparity", "disparity_right", "valid", "cost"):
-            np.testing.assert_array_equal(
-                np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
-        np.testing.assert_allclose(
-            np.asarray(got["subpixel"]), np.asarray(want["subpixel"]),
-            rtol=0, atol=0)
-
-    @pytest.mark.parametrize("dtype,kw", [
-        (jnp.int32, {}),
-        (jnp.int8, dict(tiny_values=True)),
-        (jnp.int16, dict(small_values=True)),
-    ])
-    def test_eight_direction_chained_folds_match_oracle(self, dtype, kw):
-        """The chained v-major direction sums (vertical axis sum ->
-        diagonal pair 1 -> diagonal pair 2 through add_wide, one
-        donated int16 buffer) must equal the XLA oracle bit for bit —
-        the chain only reassociates integer adds."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-        from stereomatching_tpu.ops.sgm import sgm_aggregate
-
-        rng = np.random.default_rng(51)
-        vol = jnp.asarray(rng.integers(0, 24, (2, 20, 40, 32))
-                          .astype(np.int32))
-        want = jax.vmap(
-            lambda v: sgm_aggregate(v, 8, 96, directions=8))(vol)
-        got = sgm_aggregate_pallas(vol.astype(dtype), 8, 96,
-                                   directions=8, **kw)
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int64), np.asarray(want))
-
-    def test_modern_sgm_eight_directions_vmajor_route(self):
-        """Lane-multiple widths at 8 directions select the v-major
-        builder (one fewer volume live — the d-major route's third
-        buffer OOMs 8-dir at batch 24 on chip); bits must match the
-        XLA tier exactly."""
-        from stereomatching_tpu.models.modern import modern_forward
-
-        rng = np.random.default_rng(34)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 128)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 128)).astype(np.int32))
-        params = ModernParams(num_disparities=8, aggregation="sgm",
-                              cost="census", sgm_directions=8)
-        want = modern_forward(l, r, params)
-        got = modern_forward(l, r, params, use_pallas=True)
-        for key in ("disparity", "disparity_right", "valid", "cost"):
-            np.testing.assert_array_equal(
-                np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
-
-    @pytest.mark.parametrize("reverse", [False, True])
-    def test_directional_int8_storage_bit_identical(self, reverse):
-        """int8 input (census-class bound, D == pow2 >= 32) must match
-        the int32 path after widening."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(37)
-        vol = rng.integers(0, 25, size=(15, 32, 140)).astype(np.int32)
-        want = sgm_directional_pallas(jnp.asarray(vol), 8, 96,
-                                      reverse=reverse, strip=4)
-        got = sgm_directional_pallas(jnp.asarray(vol.astype(np.int8)), 8, 96,
-                                     reverse=reverse, strip=4)
-        assert got.dtype == jnp.int8
-        np.testing.assert_array_equal(np.asarray(got, dtype=np.int32),
-                                      np.asarray(want))
-        # D != its sublane round-up must be rejected, not corrupted.
-        with pytest.raises(ValueError):
-            sgm_directional_pallas(
-                jnp.asarray(vol[:, :20].astype(np.int8)), 8, 96)
-
-    @pytest.mark.parametrize("directions", [4, 8])
-    def test_aggregate_tiny_values_bit_identical(self, directions):
-        """tiny_values (int8 storage; int16 folded sums) must match the
-        int32 path bit for bit, including the dhw tail-padded merge and
-        the diagonal passes."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        rng = np.random.default_rng(41)
-        vol = rng.integers(0, 25, size=(2, 9, 150, 32)).astype(np.int32)
-        dvol = jnp.asarray(np.transpose(vol, (0, 3, 1, 2)))
-        want = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw",
-                                    tail_padded=True, directions=directions)
-        got = sgm_aggregate_pallas(dvol, 8, 96, layout="dhw",
-                                   tail_padded=True, directions=directions,
-                                   tiny_values=True, out_dtype=jnp.int16)
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int32), np.asarray(want))
-        # Non-pow2 D falls back to int32 silently (values unchanged).
-        small = sgm_aggregate_pallas(dvol[:, :20], 8, 96, layout="dhw",
-                                     tiny_values=True)
-        ref = sgm_aggregate_pallas(dvol[:, :20], 8, 96, layout="dhw")
-        np.testing.assert_array_equal(np.asarray(small), np.asarray(ref))
-
-    @pytest.mark.slow  # opt-in probe surface (wide_fold=False)
-    @pytest.mark.parametrize("directions", [4, 8])
-    def test_aggregate_biased_int8_folds_bit_identical(self, directions):
-        """wide_fold=False (the biased-int8 fold probe surface: stores
-        sum - 128 and un-biases in the merge) must stay bit-identical
-        to the default int16 folds."""
-        from stereomatching_tpu.ops.fused_sgm import (
-            aggregate_from_scan_major,
-        )
-
-        rng = np.random.default_rng(43)
-        b, d, h, w = 2, 32, 24, 150
-        vol = jnp.asarray(
-            rng.integers(0, 25, (b, d, h, w)).astype(np.int8))
-        vv = jnp.transpose(vol, (2, 1, 0, 3)).reshape(h, d, b * w)
-        vh = jnp.transpose(vol, (3, 1, 0, 2)).reshape(w, d, b * h)
-        want = aggregate_from_scan_major(
-            vv, vh, b, 8, 96, directions=directions, layout="dhw")
-        got = aggregate_from_scan_major(
-            vv, vh, b, 8, 96, directions=directions, layout="dhw",
-            wide_fold=False)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_aggregate_fuzz_shapes_penalties_directions(self):
-        """Randomized shapes / penalties / direction counts / storages:
-        the Pallas aggregation must match the XLA oracle bit for bit on
-        every draw (odd sizes, strips that don't divide S cleanly,
-        mid-chunk boundaries)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        rng = np.random.default_rng(67)
-        for trial in range(6):
-            h = int(rng.integers(5, 24))
-            w = int(rng.integers(130, 200))  # > one lane tile
-            d = int(rng.integers(3, 14))
-            p1 = int(rng.integers(0, 6))
-            p2 = p1 + int(rng.integers(0, 40))
-            dirs = int(rng.choice([4, 8]))
-            small = bool(rng.integers(0, 2))
-            vol = rng.integers(0, 25, size=(h, w, d)).astype(np.int32)
-            want = np.asarray(sgm_aggregate(jnp.asarray(vol), p1, p2,
-                                            directions=dirs))
-            got = np.asarray(sgm_aggregate_pallas(
-                jnp.asarray(vol), p1, p2, directions=dirs,
-                small_values=small))
-            np.testing.assert_array_equal(
-                got, want,
-                err_msg=f"trial {trial}: h={h} w={w} d={d} p1={p1} "
-                        f"p2={p2} dirs={dirs} small={small}")
-
-    @pytest.mark.parametrize("cost", ["census", "sad"])
-    def test_volume_builder_matches_xla(self, cost):
-        """sgm_volume_pallas (VMEM-fused build) must equal the XLA
-        stacked build bit for bit, batched and single, with the
-        edge-clamped left extension."""
-        import jax
-
-        from stereomatching_tpu.models.modern import (
-            _maybe_census,
+        """8 paths change the result and equal the volume + 8-path
+        aggregation + tail composition."""
+        from stereomatching.models.modern import (
+            _sgm_tail,
             _sgm_volume,
+            modern_forward,
         )
-        from stereomatching_tpu.ops.fused_sgm import sgm_volume_pallas
 
-        rng = np.random.default_rng(61)
-        params = ModernParams(num_disparities=16, aggregation="sgm",
-                              cost=cost)
-        l = jnp.asarray(rng.integers(0, 256, (2, 20, 256)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, (2, 20, 256)).astype(np.int32))
-        want = jax.vmap(
-            lambda a, b: _sgm_volume(a, b, params, layout="dhw",
-                                     dtype=jnp.int16)
-        )(l, r)
-        tf = jax.vmap(lambda x: _maybe_census(x, params))
-        got = sgm_volume_pallas(tf(l), tf(r), 16, cost=cost,
-                                dtype=jnp.int16)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-        # Non-lane-multiple W must be rejected (callers fall back).
-        with pytest.raises(ValueError):
-            sgm_volume_pallas(tf(l)[..., :200], tf(r)[..., :200], 16,
-                              cost=cost)
-
-    def test_modern_sgm_pallas_route_lane_multiple_width(self):
-        """The full pallas route at a lane-multiple width vs the XLA
-        tier.  (The pipeline deliberately uses the XLA stacked volume
-        build even here — sgm_volume_pallas was benched out of
-        production; test_volume_builder_matches_xla covers it.)"""
-        from stereomatching_tpu.models.modern import modern_forward
-
-        rng = np.random.default_rng(63)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 256)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 256)).astype(np.int32))
-        params = ModernParams(num_disparities=8, aggregation="sgm",
-                              cost="census")
-        want = modern_forward(l, r, params)
-        got = modern_forward(l, r, params, use_pallas=True)
-        for key in ("disparity", "disparity_right", "valid", "cost"):
-            np.testing.assert_array_equal(
-                np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+        rng = np.random.default_rng(12)
+        l = jnp.asarray(rng.integers(0, 256, size=(16, 40)).astype(np.int32))
+        r = jnp.asarray(rng.integers(0, 256, size=(16, 40)).astype(np.int32))
+        p4 = ModernParams(num_disparities=8, aggregation="sgm", cost="census")
+        p8 = ModernParams(num_disparities=8, aggregation="sgm", cost="census",
+                          sgm_directions=8)
+        got = modern_forward(l, r, p8)
+        agg = sgm_aggregate(_sgm_volume(l, r, p8), p8.sgm_p1, p8.sgm_p2,
+                            directions=8)
+        want = _sgm_tail(agg, p8)
+        for key in want:
+            np.testing.assert_array_equal(np.asarray(got[key]),
+                                          np.asarray(want[key]), err_msg=key)
+        assert not np.array_equal(np.asarray(got["cost"]),
+                                  np.asarray(modern_forward(l, r, p4)["cost"]))
 
     def test_uniqueness_second_best_brute(self):
         """c2 = min cost outside the winner's +-1 neighborhood, checked
         against literal loops."""
-        from stereomatching_tpu.ops.sgm import (
+        from stereomatching.ops.sgm import (
             second_best_outside_neighborhood,
         )
 
@@ -646,147 +371,43 @@ class TestPallasSGM:
                 want[y, x] = min(cands)
         np.testing.assert_array_equal(got, want)
 
-    def test_modern_sgm_uniqueness_across_tiers(self):
-        """The fused tail's second in-VMEM pass must equal the XLA
-        twin bit for bit; valid the ratio's basic properties."""
-        from stereomatching_tpu.models.modern import modern_forward
-
-        rng = np.random.default_rng(57)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        params = ModernParams(num_disparities=8, aggregation="sgm",
-                              cost="census", uniqueness=True)
-        want = modern_forward(l, r, params)
-        got = modern_forward(l, r, params, use_pallas=True)
-        assert "uniqueness" in want and "uniqueness" in got
-        np.testing.assert_array_equal(np.asarray(got["uniqueness"]),
-                                      np.asarray(want["uniqueness"]))
-        u = np.asarray(want["uniqueness"])
-        c1 = np.asarray(want["cost"])
-        # c2 >= c1 by construction, so the ratio is >= 1 wherever the
-        # best cost is >= 1 (c1 == 0 divides by the clamp instead).
-        assert (u[c1 >= 1] >= 1.0).all() and (u >= 0).all()
-        # box route must reject the flag at config time
-        with pytest.raises(ValueError):
-            ModernParams(num_disparities=8, uniqueness=True)
-
-    @pytest.mark.parametrize("cost,dtype", [("census", jnp.int8),
-                                            ("census", jnp.int16),
-                                            ("sad", jnp.int16)])
-    def test_volume_vmajor_builder_matches_xla(self, cost, dtype):
-        """The v-scan-major VMEM builder (the production volume route
-        for lane-multiple widths) must equal the XLA stacked build +
-        transpose bit for bit, and reject non-lane-multiple widths."""
-        from stereomatching_tpu.models.modern import (
-            _maybe_census,
-            _sgm_volume,
-        )
-        from stereomatching_tpu.ops.fused_sgm import (
-            sgm_volume_vmajor_pallas,
-        )
-
-        rng = np.random.default_rng(67)
-        b, h, w, d = 2, 13, 256, 32
-        params = ModernParams(num_disparities=d, aggregation="sgm",
-                              cost=cost)
-        l = jnp.asarray(rng.integers(0, 256, (b, h, w)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, (b, h, w)).astype(np.int32))
-        vol = jax.vmap(
-            lambda a, o: _sgm_volume(a, o, params, layout="dhw",
-                                     dtype=dtype)
-        )(l, r)
-        want = jnp.transpose(vol, (2, 1, 0, 3)).reshape(h, d, b * w)
-        tf = jax.vmap(lambda x: _maybe_census(x, params))
-        got = sgm_volume_vmajor_pallas(tf(l), tf(r), d, cost=cost,
-                                       dtype=dtype)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-        with pytest.raises(ValueError):
-            sgm_volume_vmajor_pallas(tf(l)[..., :200], tf(r)[..., :200],
-                                     d, cost=cost)
-
-    @pytest.mark.parametrize("dtype", [jnp.int32, jnp.int16, jnp.int8])
-    @pytest.mark.parametrize("reverse,lane_shift",
-                             [(False, 0), (True, 0),
-                              (False, 1), (True, -1), (False, -1)])
-    def test_directional_seed_carry_chain(self, dtype, reverse,
-                                          lane_shift):
-        """A seeded pass continuing from a with_carry pass must equal
-        one long unsharded pass bit for bit — the contract that lets
-        the sharded tier's phased ppermute chain run the VMEM kernel
-        per shard (axis and diagonal walks, every storage)."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(73)
-        s, d, p = 12, 32, 256
-        period = 128 if lane_shift else 0
-        vol = jnp.asarray(rng.integers(0, 25, (s, d, p)).astype(np.int32)
-                          ).astype(dtype)
-        kw = dict(lane_shift=lane_shift, lane_period=period, strip=4)
-        want = sgm_directional_pallas(vol, 8, 96, reverse=reverse, **kw)
-        first, second = (vol[6:], vol[:6]) if reverse else (vol[:6],
-                                                            vol[6:])
-        out1, carry = sgm_directional_pallas(first, 8, 96,
-                                             reverse=reverse,
-                                             with_carry=True, **kw)
-        assert carry.dtype == vol.dtype and carry.shape == (d, p)
-        out2 = sgm_directional_pallas(second, 8, 96, reverse=reverse,
-                                      seed=carry, **kw)
-        got = (jnp.concatenate([out2, out1])
-               if reverse else jnp.concatenate([out1, out2]))
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int32),
-            np.asarray(want).astype(np.int32))
-
-    @pytest.mark.parametrize("dtype", [jnp.int32, jnp.int16, jnp.int8])
-    @pytest.mark.parametrize("reverse,lane_shift",
-                             [(False, 0), (True, 0), (False, 1),
-                              (True, -1)])
-    def test_directional_folded_tree_bit_identical(self, dtype, reverse,
-                                                   lane_shift):
-        """The broadcast-folded step math (folded_tree=True) must emit
-        the same bits as production in every storage and direction —
-        it keeps the tree min at its (8, P) tile and broadcasts in a
-        reshaped view instead of concatenating.  Measured a wash on
-        chip (docs/BENCHMARKS.md round 4), kept as a probe surface."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_directional_pallas
-
-        rng = np.random.default_rng(41)
-        period = 128 if lane_shift else 0
-        vol = jnp.asarray(rng.integers(0, 25, (9, 32, 256)).astype(np.int32)
-                          ).astype(dtype)
-        kw = dict(reverse=reverse, lane_shift=lane_shift,
-                  lane_period=period, strip=3)
-        want = sgm_directional_pallas(vol, 8, 96, **kw)
-        got = sgm_directional_pallas(vol, 8, 96, folded_tree=True, **kw)
-        np.testing.assert_array_equal(
-            np.asarray(got).astype(np.int32),
-            np.asarray(want).astype(np.int32))
-
-    def test_uniqueness_all_excluded_sentinel_matches_xla(self):
+    def test_uniqueness_all_excluded_sentinel(self):
         """D <= 3 puts every disparity inside the winner's +-1
-        neighborhood for some pixels; the fused tail's c2 sentinel must
-        be ops/sgm._BIG (2^28), not the argmin carries' 2^30, so both
-        tiers emit identical bits even in the degenerate case."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_tail_pallas
-        from stereomatching_tpu.ops.sgm import (
+        neighborhood: c2 keeps the _BIG sentinel (2^28)."""
+        from stereomatching.ops.sgm import (
             second_best_outside_neighborhood,
         )
 
         rng = np.random.default_rng(71)
-        # D=2: winner d and d+-1 cover both disparities everywhere.
-        vol = jnp.asarray(rng.integers(0, 100, size=(2, 16, 128))
+        vol = jnp.asarray(rng.integers(0, 100, size=(16, 12, 2))
                           .astype(np.int32))
-        outs = sgm_tail_pallas(vol, with_uniqueness=True)
-        disp = outs[0]
-        want = second_best_outside_neighborhood(vol, disp, layout="dhw")
-        np.testing.assert_array_equal(np.asarray(outs[4]),
-                                      np.asarray(want))
-        assert (np.asarray(outs[4]) == 2**28).all()
+        disp, _, _ = volume_argmin_subpixel(vol)
+        got = np.asarray(second_best_outside_neighborhood(vol, disp))
+        assert (got == 2**28).all()
+
+    def test_modern_sgm_uniqueness(self):
+        """The uniqueness plane is c2 / max(c1, 1) of the aggregated
+        volume; the box route rejects the flag at config time."""
+        from stereomatching.models.modern import modern_forward
+
+        rng = np.random.default_rng(57)
+        l = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
+        r = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
+        params = ModernParams(num_disparities=8, aggregation="sgm",
+                              cost="census", uniqueness=True)
+        out = modern_forward(l, r, params)
+        u = np.asarray(out["uniqueness"])
+        c1 = np.asarray(out["cost"])
+        # c2 >= c1 by construction, so the ratio is >= 1 wherever the
+        # best cost is >= 1 (c1 == 0 divides by the clamp instead).
+        assert (u[c1 >= 1] >= 1.0).all() and (u >= 0).all()
+        with pytest.raises(ValueError):
+            ModernParams(num_disparities=8, uniqueness=True)
 
     def test_fill_background_semantics(self):
         """Background extension: holes take min(nearest valid left,
         nearest valid right); one-sided rows extend; empty rows -> 0."""
-        from stereomatching_tpu.ops.costvolume import fill_background
+        from stereomatching.ops.costvolume import fill_background
 
         d = jnp.asarray(np.array(
             [[5.0, 0, 0, 2, 0, 9],
@@ -804,150 +425,49 @@ class TestPallasSGM:
         np.testing.assert_array_equal(got, want)
 
     @pytest.mark.parametrize("aggregation", ["box", "sgm"])
-    def test_modern_fill_background_across_tiers(self, aggregation):
-        """fill_mode='background': XLA and Pallas tiers must agree (the
-        fill itself is a single shared associative_scan)."""
-        from stereomatching_tpu.models.modern import modern_forward
+    def test_modern_fill_background(self, aggregation):
+        """fill_mode='background': valid pixels keep their sub-pixel
+        value, holes take the fill_background of the row."""
+        from stereomatching.models.modern import modern_forward
+        from stereomatching.ops.costvolume import fill_background
 
         rng = np.random.default_rng(51)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
+        l = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
+        r = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
         params = ModernParams(num_disparities=6, aggregation=aggregation,
                               cost="census", fill_mode="background")
-        want = modern_forward(l, r, params)
-        got = modern_forward(l, r, params, use_pallas=True)
-        np.testing.assert_array_equal(np.asarray(got["filled"]),
-                                      np.asarray(want["filled"]))
-        # Valid pixels keep their sub-pixel value; holes are filled
-        # with values present in the valid set of the same row.
-        valid = np.asarray(want["valid"])
+        out = modern_forward(l, r, params)
+        valid = np.asarray(out["valid"])
         np.testing.assert_array_equal(
-            np.asarray(want["filled"])[valid],
-            np.asarray(want["subpixel"])[valid])
+            np.asarray(out["filled"])[valid],
+            np.asarray(out["subpixel"])[valid])
+        np.testing.assert_array_equal(
+            np.asarray(out["filled"]),
+            np.asarray(fill_background(out["subpixel"], out["valid"])))
 
     def test_modern_sgm_median_filter_applies(self):
-        """median_filter must act on the SGM route too (it was silently
-        box-only), identically on the XLA and Pallas tiers."""
-        from stereomatching_tpu.models.modern import modern_forward
+        """median_filter acts on the SGM route: the 3x3 median of the
+        unfiltered route's planes, before the LR check."""
+        from stereomatching.models.modern import modern_forward
+        from stereomatching.ops.costvolume import lr_consistency, median3x3
 
         rng = np.random.default_rng(43)
-        l = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(16, 150)).astype(np.int32))
+        l = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
+        r = jnp.asarray(rng.integers(0, 256, size=(16, 50)).astype(np.int32))
         base = ModernParams(num_disparities=6, aggregation="sgm",
                             cost="census")
         med = ModernParams(num_disparities=6, aggregation="sgm",
                            cost="census", median_filter=True)
         plain = modern_forward(l, r, base)
-        want = modern_forward(l, r, med)
-        got = modern_forward(l, r, med, use_pallas=True)
-        assert not np.array_equal(np.asarray(want["disparity"]),
+        got = modern_forward(l, r, med)
+        assert not np.array_equal(np.asarray(got["disparity"]),
                                   np.asarray(plain["disparity"]))
-        for key in ("disparity", "disparity_right", "valid", "cost"):
-            np.testing.assert_array_equal(
-                np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+        disp = median3x3(plain["disparity"])
+        dr = median3x3(plain["disparity_right"])
+        np.testing.assert_array_equal(np.asarray(got["disparity"]),
+                                      np.asarray(disp))
         np.testing.assert_array_equal(np.asarray(got["subpixel"]),
-                                      np.asarray(want["subpixel"]))
-
-    def test_modern_sgm_batched_pallas_route(self):
-        from stereomatching_tpu.models.modern import modern_forward
-
-        rng = np.random.default_rng(9)
-        l = jnp.asarray(rng.integers(0, 256, size=(2, 16, 24)).astype(np.int32))
-        r = jnp.asarray(rng.integers(0, 256, size=(2, 16, 24)).astype(np.int32))
-        params = ModernParams(num_disparities=6, aggregation="sgm")
-        got = modern_forward(l, r, params, use_pallas=True)
-        for i in range(2):
-            want = modern_forward(l[i], r[i], params, use_pallas=True)
-            for key in ("disparity", "disparity_right", "valid", "cost"):
-                np.testing.assert_array_equal(
-                    np.asarray(got[key][i]), np.asarray(want[key]),
-                    err_msg=f"{key}[{i}]",
-                )
-
-    def test_modern_sgm_pallas_route(self):
-        from stereomatching_tpu.models.modern import modern_forward
-
-        from tests.util import synthetic_pair
-
-        left, right = synthetic_pair(h=24, w=32, seed=6)
-        params = ModernParams(num_disparities=8, aggregation="sgm")
-        got = modern_forward(jnp.asarray(left.astype(np.int32)),
-                             jnp.asarray(right.astype(np.int32)),
-                             params, use_pallas=True)
-        want = modern_forward(jnp.asarray(left.astype(np.int32)),
-                              jnp.asarray(right.astype(np.int32)),
-                              params, use_pallas=False)
-        for key in ("disparity", "disparity_right", "valid", "cost"):
-            np.testing.assert_array_equal(np.asarray(got[key]),
-                                          np.asarray(want[key]), err_msg=key)
-
-    @pytest.mark.parametrize("shape", [(12, 15, 23), (8, 33, 47), (16, 17, 130)])
-    @pytest.mark.parametrize("narrow", [False, True])
-    def test_tail_pallas_bit_identical(self, shape, narrow):
-        """The fused tail kernel (one volume pass) must reproduce the
-        XLA argmin + sub-pixel + right-view re-projection bit for bit,
-        for int32 and int16 volumes and awkward shapes."""
-        from stereomatching_tpu.ops.fused_sgm import sgm_tail_pallas
-        from stereomatching_tpu.ops.sgm import (
-            right_disparity_from_left_volume,
-            volume_argmin_subpixel,
-        )
-
-        d, h, w = shape
-        rng = np.random.default_rng(d)
-        vol = rng.integers(0, 900, size=(d, h, w)).astype(np.int32)
-        jv = jnp.asarray(vol.astype(np.int16) if narrow else vol)
-        disp, sub, cost, dr = sgm_tail_pallas(jv)
-        wd, ws, wc = volume_argmin_subpixel(jnp.asarray(vol), layout="dhw")
-        wr = right_disparity_from_left_volume(jnp.asarray(vol), layout="dhw")
-        np.testing.assert_array_equal(np.asarray(disp), np.asarray(wd))
-        np.testing.assert_array_equal(np.asarray(sub), np.asarray(ws))
-        np.testing.assert_array_equal(np.asarray(cost), np.asarray(wc))
-        np.testing.assert_array_equal(np.asarray(dr), np.asarray(wr))
-
-    def test_tail_pallas_batched(self):
-        from stereomatching_tpu.ops.fused_sgm import sgm_tail_pallas
-
-        rng = np.random.default_rng(3)
-        vols = jnp.asarray(
-            rng.integers(0, 400, size=(3, 9, 21, 34)).astype(np.int32))
-        outs = sgm_tail_pallas(vols)
-        for i in range(3):
-            singles = sgm_tail_pallas(vols[i])
-            for got, want in zip(outs, singles):
-                np.testing.assert_array_equal(np.asarray(got[i]),
-                                              np.asarray(want))
-
-    def test_aggregate_out_dtype_int16_same_values(self):
-        from stereomatching_tpu.ops.fused_sgm import sgm_aggregate_pallas
-
-        rng = np.random.default_rng(23)
-        vol = rng.integers(0, 24, size=(7, 19, 27)).astype(np.int32)
-        want = sgm_aggregate_pallas(jnp.asarray(np.transpose(vol, (2, 0, 1))),
-                                    8, 96, layout="dhw")
-        got = sgm_aggregate_pallas(
-            jnp.asarray(np.transpose(vol, (2, 0, 1)).astype(np.int16)),
-            8, 96, layout="dhw", small_values=True, out_dtype=jnp.int16)
-        assert got.dtype == jnp.int16
-        np.testing.assert_array_equal(np.asarray(got, dtype=np.int32),
-                                      np.asarray(want))
-
-    def test_modern_sgm_pallas_subpixel_filled_match(self):
-        """The fused-tail route's float planes (subpixel, filled) must
-        equal the XLA route's bit for bit (same float expression
-        order)."""
-        from stereomatching_tpu.models.modern import modern_forward
-
-        from tests.util import synthetic_pair
-
-        left, right = synthetic_pair(h=24, w=32, seed=8)
-        params = ModernParams(num_disparities=8, aggregation="sgm")
-        got = modern_forward(jnp.asarray(left.astype(np.int32)),
-                             jnp.asarray(right.astype(np.int32)),
-                             params, use_pallas=True)
-        want = modern_forward(jnp.asarray(left.astype(np.int32)),
-                              jnp.asarray(right.astype(np.int32)),
-                              params, use_pallas=False)
-        for key in ("subpixel", "filled"):
-            np.testing.assert_array_equal(np.asarray(got[key]),
-                                          np.asarray(want[key]), err_msg=key)
+                                      np.asarray(median3x3(plain["subpixel"])))
+        np.testing.assert_array_equal(
+            np.asarray(got["valid"]),
+            np.asarray(lr_consistency(disp, dr, med.lr_max_diff, 6)))

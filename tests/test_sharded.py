@@ -10,15 +10,13 @@ import jax
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.parallel import build_sharded_pipeline, make_mesh
-from stereomatching_tpu.utils.imageio import to_brightness
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.parallel import build_sharded_pipeline, make_mesh
+from stereomatching.utils.imageio import to_brightness
 from tests.util import synthetic_pair
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device CPU mesh (conftest)"
-)
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 def _batch(n_pairs, h, w, seed0=0):
@@ -82,7 +80,7 @@ def test_sharded_matches_single_chip_reference_rule():
     """'reference' edge rule: sharded vs single-chip JAX tier must agree
     bitwise (same backend, same arithmetic) even where the oracle's f64
     would differ."""
-    from stereomatching_tpu.models.classic import build_classic_pipeline
+    from stereomatching.models.classic import build_classic_pipeline
 
     params = StereoParams(
         square_width=9, times=6, lines=4, num_shifts=12,
@@ -101,8 +99,9 @@ def test_sharded_matches_single_chip_reference_rule():
 
 @pytest.mark.parametrize("mode", [BoundaryMode.WRAP, BoundaryMode.GHOST])
 def test_sharded_pallas_matches_oracle(mode):
-    """Sharded tier with the per-shard Pallas kernel (interpret on CPU):
-    halo exchange feeds the VMEM kernel, output stays bit-identical."""
+    """Sharded tier with the fused match kernel on each shard (in the
+    Pallas interpreter here): halo exchange feeds the kernel, output
+    stays bit-identical."""
     params = StereoParams(
         square_width=9, times=6, lines=4, num_shifts=12, mode=mode,
         edge_rule="exact",
@@ -110,7 +109,8 @@ def test_sharded_pallas_matches_oracle(mode):
     mesh = make_mesh(data=2, rows=4)
     lefts, rights = _batch(n_pairs=2, h=4 * 12, w=48)
     got = jax.device_get(
-        build_sharded_pipeline(params, mesh, use_pallas=True)(lefts, rights)
+        build_sharded_pipeline(params, mesh, use_pallas=True,
+                               interpret=True)(lefts, rights)
     )
     want = _oracle_batch(lefts, rights, params)
     for name in ("score_best", "web-1", "web-2", "output-0"):
@@ -139,7 +139,8 @@ def test_sharded_2d_matches_oracle(mode, data, rows, cols, pallas):
     # shard width must cover num_shifts + half = 16
     lefts, rights = _batch(n_pairs=data, h=max(rows * 12, 16), w=cols * 20)
     got = jax.device_get(
-        build_sharded_pipeline(params, mesh, use_pallas=pallas)(lefts, rights)
+        build_sharded_pipeline(params, mesh, use_pallas=pallas,
+                               interpret=pallas)(lefts, rights)
     )
     want = _oracle_batch(lefts, rights, params)
     names = ("edges-1", "edges-2", "score_best", "web-1", "web-2", "output-0")
@@ -151,7 +152,7 @@ def test_sharded_2d_matches_oracle(mode, data, rows, cols, pallas):
 
 
 def test_sharded_2d_validation():
-    from stereomatching_tpu.parallel import sharded_classic_forward
+    from stereomatching.parallel import sharded_classic_forward
 
     params = StereoParams(square_width=9, num_shifts=12)
     mesh = make_mesh(data=1, rows=1, cols=8)

@@ -1,18 +1,17 @@
-"""Modern-pipeline sharded tier vs single-chip — bit-equality on the
-8-device CPU mesh for every mesh shape, both per-shard routes (XLA scan
-and the fused Pallas kernel in interpret mode)."""
+"""Modern-pipeline sharded tier vs single-device — bit-equality on the
+8-device CPU mesh for every mesh shape."""
 
 import numpy as np
 import pytest
 
-from stereomatching_tpu.config import ModernParams
+from stereomatching.config import ModernParams
 from tests.util import synthetic_pair
 
 
 def _mesh(data, rows):
     import jax
 
-    from stereomatching_tpu.parallel import make_mesh
+    from stereomatching.parallel import make_mesh
 
     if len(jax.devices()) < data * rows:
         pytest.skip("needs CPU mesh")
@@ -20,11 +19,11 @@ def _mesh(data, rows):
                      devices=jax.devices()[: data * rows])
 
 
-def _run_both(params, data, rows, h=48, w=64, use_pallas=False, seed=0):
+def _run_both(params, data, rows, h=48, w=64, seed=0):
     import jax
 
-    from stereomatching_tpu.models.modern import build_modern_pipeline
-    from stereomatching_tpu.parallel import build_sharded_modern_pipeline
+    from stereomatching.models.modern import build_modern_pipeline
+    from stereomatching.parallel import build_sharded_modern_pipeline
 
     mesh = _mesh(data, rows)
     lefts, rights = [], []
@@ -35,7 +34,7 @@ def _run_both(params, data, rows, h=48, w=64, use_pallas=False, seed=0):
     lb, rb = np.stack(lefts), np.stack(rights)
 
     sharded = jax.device_get(
-        build_sharded_modern_pipeline(params, mesh, use_pallas)(lb, rb)
+        build_sharded_modern_pipeline(params, mesh)(lb, rb)
     )
     single = build_modern_pipeline(params, batched=True)
     want = jax.device_get(single(lb, rb))
@@ -72,9 +71,9 @@ def test_sharded_modern_median_matches_single():
 
 
 @pytest.mark.parametrize("cost", ["sad", "census"])
-def test_sharded_modern_pallas_matches_single(cost):
+def test_sharded_modern_rows4_matches_single(cost):
     params = ModernParams(num_disparities=8, window=5, cost=cost)
-    sharded, want = _run_both(params, 1, 4, use_pallas=True, seed=7)
+    sharded, want = _run_both(params, 1, 4, seed=7)
     _assert_equal(sharded, want)
 
 
@@ -102,26 +101,17 @@ def test_sharded_modern_sgm_census_matches_single():
     _assert_equal(sharded, want)
 
 
-def test_sharded_modern_sgm_pallas_matches_single():
-    # Pallas horizontal passes (batch*rows folded into the lane axis) +
-    # XLA vertical carry chain.
+def test_sharded_modern_sgm_data2_rows4_matches_single():
     params = ModernParams(num_disparities=8, aggregation="sgm")
-    sharded, want = _run_both(params, 2, 4, use_pallas=True, seed=17)
+    sharded, want = _run_both(params, 2, 4, seed=17)
     _assert_equal(sharded, want)
 
 
-def test_sharded_modern_sgm_int8_storage_matches_single():
-    # num_disparities=32 + census selects the int8 storage ladder rung
-    # (models/modern._sgm_storage_dtype) inside the sharded horizontal
-    # kernel route as well.
-    from stereomatching_tpu.models.modern import _sgm_storage_dtype
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("dirs", [4, 8])
+def test_sharded_modern_sgm_d32_matches_single(dirs):
     params = ModernParams(num_disparities=32, aggregation="sgm",
-                          cost="census")
-    assert _sgm_storage_dtype(params) == jnp.int8
-    sharded, want = _run_both(params, 1, 4, use_pallas=True, seed=29,
-                              h=32, w=48)
+                          cost="census", sgm_directions=dirs)
+    sharded, want = _run_both(params, 1, 4, seed=29 + dirs, h=32, w=48)
     _assert_equal(sharded, want)
 
 
@@ -162,35 +152,19 @@ def test_sharded_modern_sgm_eight_directions_matches_single(rows):
 
 
 @pytest.mark.parametrize("rows,dirs", [(4, 4), (8, 4), (4, 8), (8, 8)])
-def test_sharded_modern_sgm_pallas_vertical_kernel_matches_single(
-    rows, dirs
-):
-    # The seeded per-shard VMEM kernel route for the y-crossing passes
-    # (verticals AND diagonals): every mesh shape must stay
-    # bit-identical to the single-chip kernel — tiling must not change
-    # the per-tile kernel (the reference's ghost rule,
-    # src/stereo-ghost.cu:146-159).
+def test_sharded_modern_sgm_rows_dirs_matches_single(rows, dirs):
+    # The y-crossing passes (verticals AND diagonals) as a phased carry
+    # chain: every mesh shape stays bit-identical to the single-device
+    # scans — tiling must not change the per-tile result (the
+    # reference's ghost rule, src/stereo-ghost.cu:146-159).
     params = ModernParams(num_disparities=8, aggregation="sgm",
                           cost="census", sgm_directions=dirs)
-    sharded, want = _run_both(params, 1, rows, use_pallas=True, seed=23)
-    _assert_equal(sharded, want)
-
-
-def test_sharded_modern_sgm_pallas_int8_eight_dir_matches_single():
-    # int8 storage + diagonals through the seeded kernel chain.
-    from stereomatching_tpu.models.modern import _sgm_storage_dtype
-    import jax.numpy as jnp
-
-    params = ModernParams(num_disparities=32, aggregation="sgm",
-                          cost="census", sgm_directions=8)
-    assert _sgm_storage_dtype(params) == jnp.int8
-    sharded, want = _run_both(params, 1, 4, use_pallas=True, seed=31,
-                              h=32, w=48)
+    sharded, want = _run_both(params, 1, rows, seed=23)
     _assert_equal(sharded, want)
 
 
 def test_sharded_modern_validation():
-    from stereomatching_tpu.parallel import sharded_modern_forward
+    from stereomatching.parallel import sharded_modern_forward
 
     mesh = _mesh(1, 8)
     lb = np.zeros((1, 48, 64), np.int32)
@@ -214,8 +188,8 @@ def test_sharded_modern_2d_matches_single(cost, data, rows, cols):
     import jax
     import jax.numpy as jnp
 
-    from stereomatching_tpu.models.modern import modern_forward
-    from stereomatching_tpu.parallel import (
+    from stereomatching.models.modern import modern_forward
+    from stereomatching.parallel import (
         build_sharded_modern_pipeline,
         make_mesh,
     )
@@ -237,7 +211,7 @@ def test_sharded_modern_2d_matches_single(cost, data, rows, cols):
 def test_sharded_modern_2d_validation():
     import jax.numpy as jnp
 
-    from stereomatching_tpu.parallel import (
+    from stereomatching.parallel import (
         make_mesh,
         sharded_modern_forward,
     )
@@ -267,8 +241,8 @@ def test_sharded_rejects_multiscale_sgm():
     import jax
     import pytest
 
-    from stereomatching_tpu.config import ModernParams
-    from stereomatching_tpu.parallel import (
+    from stereomatching.config import ModernParams
+    from stereomatching.parallel import (
         build_sharded_modern_pipeline,
         make_mesh,
     )

@@ -46,9 +46,9 @@ export PYTHONPATH="$REPO${PYTHONPATH:+:$PYTHONPATH}"
 # they are gated on the 6 final artifacts the reference also dumps.
 COLLECT=--collect
 case "$TIER" in pallas|sharded) COLLECT= ;; esac
-python -m stereomatching_tpu.cli "$A" "$B" --tier "$TIER" --mode wrap \
+python -m stereomatching.cli "$A" "$B" --tier "$TIER" --mode wrap \
     --edge-rule "$EDGE_RULE" $COLLECT --outdir our_ser >/dev/null
-python -m stereomatching_tpu.cli "$A" "$B" --tier "$TIER" --mode ghost \
+python -m stereomatching.cli "$A" "$B" --tier "$TIER" --mode ghost \
     --edge-rule "$EDGE_RULE" $COLLECT --outdir our_sergh >/dev/null
 
 if [ -z "$COLLECT" ] && [ "$EDGE_RULE" = exact ]; then

@@ -11,7 +11,7 @@ ground-truth disparity map (Middlebury-style bad-1/bad-2/EPE):
 ``gt`` may be a Middlebury .pfm (NaN/inf == unknown), a disparity PNG
 (16-bit KITTI value/256 with 0 invalid, or 8-bit integer-scaled — pass
 ``--gt-scale`` 0.25/0.125 for the quarter/eighth-pixel encodings), or a
-.npy float/int array — see stereomatching_tpu/data/formats.py.  With
+.npy float/int array — see stereomatching/data/formats.py.  With
 ``--synthetic N`` instead of file arguments, evaluates on the built-in
 synthetic scene (exact ground truth) at max disparity N.
 """
@@ -69,26 +69,26 @@ def main() -> int:
                    help="intensity bias added to the RIGHT view only")
     args = p.parse_args()
 
-    from stereomatching_tpu.cli import _ensure_platform
+    from stereomatching.utils.platform import ensure_compile_cache
 
-    _ensure_platform()
+    ensure_compile_cache()
 
-    from stereomatching_tpu.config import ModernParams
-    from stereomatching_tpu.models.modern import build_modern_pipeline
-    from stereomatching_tpu.utils.imageio import read_png_gray
-    from stereomatching_tpu.utils.metrics import disparity_report
-    from stereomatching_tpu.utils.synthetic import blob_scene
+    from stereomatching.config import ModernParams
+    from stereomatching.models.modern import build_modern_pipeline
+    from stereomatching.utils.imageio import read_png_gray
+    from stereomatching.utils.metrics import disparity_report
+    from stereomatching.utils.synthetic import blob_scene
 
     if args.synthetic is not None:
         if args.scene == "slanted":
-            from stereomatching_tpu.utils.synthetic import slanted_plane
+            from stereomatching.utils.synthetic import slanted_plane
 
             left, right, gt = slanted_plane(
                 h=270, w=480, seed=0, d_min=1.0,
                 d_max=float(args.synthetic),
             )
         elif args.scene == "rds":
-            from stereomatching_tpu.utils.synthetic import (
+            from stereomatching.utils.synthetic import (
                 random_dot_stereogram,
             )
 
@@ -101,7 +101,7 @@ def main() -> int:
             )
         gt = gt.astype(np.float64)
         if args.scene in ("blob", "rds"):
-            from stereomatching_tpu.utils.synthetic import occlusion_mask
+            from stereomatching.utils.synthetic import occlusion_mask
 
             occ = occlusion_mask(gt.astype(np.int32))
         else:
@@ -109,7 +109,7 @@ def main() -> int:
     else:
         if not (args.left and args.right and args.gt):
             p.error("need left right gt (or --synthetic)")
-        from stereomatching_tpu.data.formats import read_ground_truth
+        from stereomatching.data.formats import read_ground_truth
 
         left = read_png_gray(args.left)
         right = read_png_gray(args.right)
@@ -117,7 +117,7 @@ def main() -> int:
         occ = None
 
     if args.noise > 0 or args.gain != 1.0 or args.bias != 0.0:
-        from stereomatching_tpu.utils.synthetic import photometric_perturb
+        from stereomatching.utils.synthetic import photometric_perturb
 
         left, right = photometric_perturb(
             left, right, noise_sigma=args.noise, gain=args.gain,

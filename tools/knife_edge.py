@@ -57,10 +57,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from stereomatching_tpu.config import BoundaryMode, StereoParams
-from stereomatching_tpu.oracle import pipeline as oracle
-from stereomatching_tpu.oracle.pipeline import _EDGE_OPERATORS, _pad_for_stencil
-from stereomatching_tpu.utils.imageio import (
+from stereomatching.config import BoundaryMode, StereoParams
+from stereomatching.oracle import pipeline as oracle
+from stereomatching.oracle.pipeline import _EDGE_OPERATORS, _pad_for_stencil
+from stereomatching.utils.imageio import (
     artifact_ppm_type,
     ppm_bytes,
     read_png_gray,

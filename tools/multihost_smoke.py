@@ -2,16 +2,16 @@
 """Multi-process (multi-host emulation) smoke test.
 
 Launches N OS processes that initialize ``jax.distributed`` over a
-localhost coordinator — the exact boot sequence of a TPU pod slice, on
-CPU devices — then runs ONE sharded pipeline step over the global
+localhost coordinator — the boot sequence of a multi-host run, on CPU
+devices — then runs ONE sharded pipeline step over the global
 (data=1, rows=N*devices_per_process) mesh and checks the result against
 the NumPy oracle on process 0.
 
     python tools/multihost_smoke.py [--procs 2] [--local-devices 2]
 
 This is the cross-process counterpart of the single-process 8-device
-mesh tests (tests/test_sharded.py): it exercises the DCN coordination
-path and cross-process collectives that a pod run depends on.
+mesh tests (tests/test_sharded.py): it exercises the coordination path
+and cross-process collectives that a multi-host run depends on.
 """
 
 from __future__ import annotations
@@ -39,11 +39,11 @@ def worker(coord: str, procs: int, pid: int, local: int) -> int:
     )
     import numpy as np
 
-    from stereomatching_tpu.config import BoundaryMode, StereoParams
-    from stereomatching_tpu.oracle import pipeline as oracle
-    from stereomatching_tpu.parallel import build_sharded_pipeline, make_mesh
-    from stereomatching_tpu.utils.imageio import to_brightness
-    from stereomatching_tpu.utils.synthetic import blob_scene
+    from stereomatching.config import BoundaryMode, StereoParams
+    from stereomatching.oracle import pipeline as oracle
+    from stereomatching.parallel import build_sharded_pipeline, make_mesh
+    from stereomatching.utils.imageio import to_brightness
+    from stereomatching.utils.synthetic import blob_scene
 
     n = len(jax.devices())
     assert n == procs * local, (n, procs, local)
@@ -58,7 +58,7 @@ def worker(coord: str, procs: int, pid: int, local: int) -> int:
     right = to_brightness(right_u8, np.float32)[None]
 
     # Global arrays assembled shard-by-shard: every process serves the
-    # global slices its local devices own (the pod-slice input path).
+    # global slices its local devices own (the multi-host input path).
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     sharding = NamedSharding(mesh, P(None, "rows", None))

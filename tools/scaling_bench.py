@@ -4,14 +4,13 @@
 
 Sweeps row-shard counts on the available devices, keeping the work per
 shard constant (image height grows with the mesh), and reports
-throughput + efficiency vs the 1-shard run.  On a pod slice, run one
-process per host with jax.distributed initialized
-(stereomatching_tpu/parallel/distributed.py); on this dev box it runs
-on the virtual CPU mesh (numbers exercise the harness, not the
-hardware).
+throughput + efficiency vs the 1-shard run, on the visible devices
+(the GPUs of one host, or a virtual CPU mesh, whose numbers exercise
+the harness, not the hardware).  The match route on each shard is the
+one the backend decision point picks.
 
     python tools/scaling_bench.py [--rows-per-shard 256] [--width 1024]
-        [--batch 2] [--iters 3] [--max-shards 8] [--pallas]
+        [--batch 2] [--iters 3] [--max-shards 8]
 """
 
 from __future__ import annotations
@@ -35,22 +34,24 @@ def main() -> int:
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--max-shards", type=int, default=None)
     p.add_argument("--disparities", type=int, default=64)
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--axis", choices=["rows", "cols"], default="rows",
                    help="which spatial mesh axis to sweep (cols sweeps "
                         "the 2-D tier: W grows with the shard count and "
                         "x halos ride col exchanges)")
     args = p.parse_args()
 
-    from stereomatching_tpu.cli import _ensure_platform
+    from stereomatching.utils.platform import ensure_compile_cache
 
-    _ensure_platform()
+    ensure_compile_cache()
 
     import jax
     import jax.numpy as jnp
 
-    from stereomatching_tpu.config import BoundaryMode, StereoParams
-    from stereomatching_tpu.parallel import build_sharded_pipeline, make_mesh
+    from stereomatching.config import BoundaryMode, StereoParams
+    from stereomatching.parallel import build_sharded_pipeline, make_mesh
+    from stereomatching.utils.platform import implementation
+
+    fused = implementation("classic_match") == "fused"
 
     n_dev = len(jax.devices())
     max_shards = args.max_shards or n_dev
@@ -72,7 +73,7 @@ def main() -> int:
             w = args.width
             mesh = make_mesh(data=1, rows=shards,
                              devices=jax.devices()[:shards])
-        fn = build_sharded_pipeline(params, mesh, use_pallas=args.pallas)
+        fn = build_sharded_pipeline(params, mesh, use_pallas=fused)
 
         def step(l, r, fn=fn):
             out = fn(l, r)
@@ -105,7 +106,7 @@ def main() -> int:
         r["weak_scaling_efficiency"] = r["mpix_per_s"] / (base * r["shards"])
     print(json.dumps({
         "device": jax.devices()[0].platform,
-        "pallas": args.pallas,
+        "match": implementation("classic_match"),
         "axis": args.axis,
         "rows_per_shard": args.rows_per_shard,
         "results": results,

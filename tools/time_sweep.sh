@@ -17,7 +17,7 @@ for dir in "$REF"/test/imgs/*/; do
     name=$(basename "$dir")
     times=""
     for _ in $(seq "$RUNS"); do
-        line=$(python -m stereomatching_tpu.cli "$dir/a.png" "$dir/b.png" \
+        line=$(python -m stereomatching.cli "$dir/a.png" "$dir/b.png" \
             --tier "$TIER" --no-writes)
         times="$times $(echo "$line" | awk '{print $15}')"
     done
